@@ -29,6 +29,7 @@ import pytest  # noqa: E402
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU (skips without one)")
 
 
 @pytest.fixture

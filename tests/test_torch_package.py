@@ -1,0 +1,75 @@
+"""Package rules of the port: it imports neither JAX nor the JAX package,
+and its entry points run on the card unless the caller asks for the CPU
+(with no card they raise instead of falling back)."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+from unet_studio_tpu_torch import cli
+from unet_studio_tpu_torch.engine.evaluate import EvaluateEngine
+from unet_studio_tpu_torch.models.serialize import load_model
+from unet_studio_tpu_torch.models.unet3d import UNet3d
+from unet_studio_tpu_torch.ops import conv as K
+from unet_studio_tpu_torch.ops.reduce import channel_sum_sq
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODEL = os.path.join(ROOT, "tests", "fixtures", "golden", "model.nz")
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "unet_studio_tpu_torch")
+    for d, _, names in os.walk(pkg):
+        for n in names:
+            if n.endswith(".py"):
+                yield os.path.join(d, n)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib") or top == "unet_studio_tpu"
+
+
+def test_no_jax_imports():
+    files = list(_port_files())
+    assert len(files) > 15
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                if _forbidden(node.module):
+                    bad.append((path, node.module))
+    assert not bad, bad
+
+
+def test_entry_points_need_a_card_or_cpu_request(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(MODEL)
+    with pytest.raises(RuntimeError):
+        UNet3d.create(1, 3, "conv8+norm\nconv8,ks3,stride2\nconv8+conv3,ks1")
+    model = load_model(MODEL, device="cpu")
+    with pytest.raises(RuntimeError):
+        EvaluateEngine(model)
+    with pytest.raises(RuntimeError):
+        cli.main(["--action", "evaluate", "--model", MODEL, "--source", MODEL])
+
+
+def test_wrappers_take_no_other_device():
+    """A wrapper runs its twin only for CPU tensors; any other device
+    goes to the kernel path, which refuses what it cannot launch."""
+    x = torch.empty((4, 4, 4, 16), device="meta")
+    w = torch.empty((16, 16, 3, 3, 3), device="meta")
+    b = torch.empty(16, device="meta")
+    with pytest.raises(ValueError, match="expected cuda or cpu"):
+        K.conv3x3x3_s1(x, w, b)
+    with pytest.raises(ValueError, match="expected cuda or cpu"):
+        channel_sum_sq(x)
+    assert K.conv3x3x3_s1.launches == 0

@@ -1,0 +1,141 @@
+"""Command-line interface of the port: the JAX package's parser
+(unet_studio_tpu/cli.py), flag for flag, with ``--device`` choosing
+where it runs (default ``cuda``).  ``--action evaluate`` is ported;
+``train`` and ``qc`` are not yet.
+
+    python -m unet_studio_tpu_torch --action evaluate --model m.nz \\
+        --source img.nii.gz [--device cpu|cuda] [--compute_dtype float32]
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import sys
+
+from .config.options import OPTION_TABLE
+from .utils.assets import find_asset_root
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="unet-studio-tpu-torch",
+        description="3D U-Net brain segmentation on an NVIDIA GPU (evaluate)",
+    )
+    p.add_argument("--action", choices=["train", "evaluate", "qc"], required=True)
+    p.add_argument("--model", required=True, help="model .nz path or zoo name")
+    p.add_argument("--source", help="evaluate: input file(s)/directory")
+    p.add_argument("--bids", help="train/qc: comma-separated BIDS roots")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default), cuda:N, or cpu; with no GPU only cpu runs")
+    p.add_argument(
+        "--thread_count", type=int, default=min(8, os.cpu_count() or 1),
+        help="host worker threads: the evaluate post-processing pool",
+    )
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--learning_rate", type=float, default=0.001)
+    p.add_argument("--epoch", type=int, default=10000)
+    p.add_argument("--is_label", type=int, default=1)
+    p.add_argument("--cost_ce", type=int, default=1)
+    p.add_argument("--cost_dice", type=int, default=1)
+    p.add_argument("--cost_mse", type=int, default=1)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--in_count", type=int, default=1)
+    p.add_argument("--out_count", type=int, default=None)
+    p.add_argument("--architecture", default=None)
+    p.add_argument("--label_weight", default=None)
+    p.add_argument("--file_list", default=None)
+    p.add_argument("--template", default=None)
+    p.add_argument("--atlas", default=None)
+    p.add_argument("--output_type", type=int, default=0)
+    p.add_argument("--asset_root", default=None, help="dir containing atlas/ and unet/")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host coordinator address host:port (not ported yet)")
+    p.add_argument("--session", default=None, help="load a training session JSON")
+    p.add_argument("--save_session", default=None, help="write the training session JSON")
+    p.add_argument("--mosaic", default=None, help="evaluate: also export a PNG slice mosaic")
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="number of devices on the data axis (not ported yet)")
+    p.add_argument("--compute_dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    for item in OPTION_TABLE:
+        p.add_argument(f"--{item.id}", type=float, default=None, help=item.hint)
+    return p
+
+
+def get_files(source: str) -> list[str]:
+    if os.path.isdir(source):
+        return sorted(glob.glob(os.path.join(source, "*.nii.gz")) +
+                      glob.glob(os.path.join(source, "*.nii")))
+    if any(ch in source for ch in "*?["):
+        return sorted(glob.glob(source))
+    return [s for s in source.split(",") if s]
+
+
+def resolve_model_path(args) -> str:
+    from .models.serialize import get_model_path
+
+    root = find_asset_root(args.asset_root)
+    zoo = os.path.join(root, "unet") if root else None
+    return get_model_path(args.model, zoo)
+
+
+def cmd_evaluate(args) -> int:
+    import torch
+
+    from .engine.evaluate import EvaluateEngine
+    from .models.serialize import load_model
+
+    if not args.source:
+        print("error: please specify --source", file=sys.stderr)
+        return 1
+    if args.template is not None and args.atlas is not None:
+        print("error: --template/--atlas parcellation is not ported yet", file=sys.stderr)
+        return 1
+    if args.mosaic:
+        print("error: --mosaic is not ported yet", file=sys.stderr)
+        return 1
+    files = get_files(args.source)
+    if not files:
+        print("error: no file specified at --source", file=sys.stderr)
+        return 1
+    model_path = resolve_model_path(args)
+    if not os.path.exists(model_path):
+        print(f"error: cannot find the network file {model_path}", file=sys.stderr)
+        return 1
+    print(f"loading network {model_path}")
+    model = load_model(model_path, device=args.device)
+    print(model.get_info())
+
+    dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    engine = EvaluateEngine(model, compute_dtype=dtype,
+                            post_workers=min(4, args.thread_count), device=args.device)
+    for case in engine.run(files):
+        if case.error_msg:
+            print(f"error: {case.error_msg}", file=sys.stderr)
+            return 1
+        out = case.path + ".result.nii.gz"
+        print(f"save to {out}")
+        if not engine.save_case(case, out, args.output_type):
+            print(f"error: cannot save {out}", file=sys.stderr)
+            return 1
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.action != "evaluate":
+        print(f"error: --action {args.action} is not ported yet", file=sys.stderr)
+        return 1
+    # boot-time accelerator probe + self-test (check_cuda, main.cpp:93-102);
+    # raises when --device asks for a card that is not there
+    from .utils.device import check_cuda
+
+    err = check_cuda(args.device)
+    if err:
+        print(f"warning: {err}", file=sys.stderr)
+    return cmd_evaluate(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
