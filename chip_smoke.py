@@ -13,9 +13,20 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    and its device time by kernel from ``torch.profiler``.
 4. The evaluate engine on the repo's golden fixtures (f32), then the
    normal entry point: ``cli.main --action evaluate`` on a synthetic
-   182x218x182 1 mm volume in bf16, with every kernel's launch count
-   read around it; then three volumes through ``EvaluateEngine.run``,
-   each stage timed alone, and the device's busy share of ``infer``.
+   182x218x182 1 mm volume in bf16, with every forward kernel's launch
+   count read around it; then three volumes through
+   ``EvaluateEngine.run``, each stage timed alone, and the device's busy
+   share of ``infer``.
+5. Each backward kernel (K1 as dx, K5-K9, K2 ``norm_bwd``) against its
+   twin at the flagship shapes, in bf16 and in f32, with its times and
+   bound as in phase 2.
+6. The train step (``build_train_step``) at full width on a batch of two
+   synthetic phantoms: every gradient of an f32 step through the kernels
+   against the same step through the twins; the bf16 step against the
+   f32 one; three bf16 steps with the loss falling; each kernel's
+   launches in one step (counts set to 0 just before it), the step's
+   forward / backward / optimizer split, its device busy share and top
+   kernels, and its peak memory.
 
 TF32 is switched off for cuDNN and matmuls, so every f32 comparison is
 f32 (cuDNN runs f32 convolutions in TF32 by default).
@@ -23,7 +34,9 @@ f32 (cuDNN runs f32 convolutions in TF32 by default).
     python3 chip_smoke.py
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds one JSON object with every kernel's numbers.
+holds one JSON object with every kernel's numbers (``launches``: per
+train step of two items; ``launches_evaluate``: in the CLI evaluate
+run, forward kernels).
 """
 
 from __future__ import annotations
@@ -59,6 +72,24 @@ FWD_F32_TOL = 1e-3
 # leaves the port less room than that gate
 FWD_BF16_TOL = 0.03
 LABEL_AGREE = 0.99
+# f32 weight gradients and K2 norm_bwd sums (any input dtype): the kernel
+# and the twin sum over up to 8M voxels in f32 in different orders
+SUM_TOL = 1e-4
+# full-width train step, f32, kernels vs twins, over every gradient of the
+# network: the L2 error relative to the twins' gradient, and each
+# tensor's max error over the network's largest gradient.  The forward
+# alone sits near 3e-5 (phase 3); the backward adds 26 weight
+# gradients summed over up to 8M voxels and the instance norms' backward
+STEP_F32_TOL = 1e-3
+# bf16 step vs f32 step: the loss (relative), and the gradient's L2 error
+# relative to the f32 one.  bf16 rounds every activation and cotangent to
+# 8 mantissa bits through some 50 layers, and the small gradients of the
+# deep levels and of the biases ahead of each norm (zero in exact
+# arithmetic) are mostly that rounding; the gate asks that the gradient
+# point the same way (L2 0.2 is a cosine above 0.98) and that the loss,
+# which training reads, agree closely
+STEP_BF16_LOSS_TOL = 2e-2
+STEP_BF16_GRAD_TOL = 0.2
 
 
 def log(msg: str) -> None:
@@ -107,15 +138,18 @@ def stats_err(st, ref, n: int) -> float:
     return max(float((mean - rmean).abs().max()), float((rms - rrms).abs().max())) / scale
 
 
-def profile_forward(fn, top: int = 12) -> dict:
+def profile_forward(fn, top: int = 12, grad: bool = False) -> dict:
     """Device time by kernel name over one call of ``fn`` (torch.profiler,
-    CUPTI), and the device's busy share of the call's wall time."""
+    CUPTI), and the device's busy share of the call's wall time.  Under
+    ``no_grad`` unless ``grad``."""
+    import contextlib
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    ctx = contextlib.nullcontext() if grad else torch.no_grad()
+    with ctx, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -141,6 +175,292 @@ class Failed(Exception):
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise Failed(what)
+
+
+def grad_errs(got: dict, ref: dict) -> tuple[float, float, str]:
+    """(L2 error over the whole network relative to ``ref``'s L2 norm,
+    the worst tensor's max error over ``ref``'s largest gradient, its
+    name)."""
+    largest = max(float(v.abs().max()) for v in ref.values())
+    diff2 = sum(float((got[k].float() - r.float()).square().sum()) for k, r in ref.items())
+    ref2 = sum(float(r.float().square().sum()) for r in ref.values())
+    worst, name = max((float((got[k] - r).abs().max()) / largest, k) for k, r in ref.items())
+    return (diff2 / ref2) ** 0.5, worst, name
+
+
+def phantom_batch(dhw, n: int, gen, dev):
+    """``n`` smooth synthetic heads on the (D, H, W) grid: (n, D, H, W, 1)
+    f32 images and (n, D, H, W) labels (0 outside, 1 the shell, 2 the
+    core), ellipsoids of random centre and radii, drawn from ``gen``."""
+    import torch
+
+    z, y, x = torch.meshgrid(*[torch.linspace(-1, 1, s, device=dev) for s in dhw],
+                             indexing="ij")
+    images, labels = [], []
+    for _ in range(n):
+        c = (torch.rand(3, generator=gen, device=dev) - 0.5) * 0.2
+        r = torch.rand(3, generator=gen, device=dev) * 0.2 + 0.6
+        f = torch.rand(3, generator=gen, device=dev) * 4 + 2
+        d = ((z - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2 + ((x - c[2]) / r[2]) ** 2
+        lab = (d < 1).long() + (d < 0.35).long()
+        img = 0.3 * lab + 0.15 * torch.sin(f[0] * x + f[1] * y) * torch.cos(f[2] * z)
+        images.append(img)
+        labels.append(lab)
+    return torch.stack(images)[..., None], torch.stack(labels)
+
+
+def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
+    """Each backward kernel against its twin at the flagship shapes (bf16
+    and f32), timed at level 0/1 in bf16 beside its twin, one PyTorch
+    library call and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from unet_studio_tpu_torch.ops import conv as K
+    from unet_studio_tpu_torch.ops import reduce as R
+
+    S0, S1, S2 = shapes
+    S3 = tuple(s // 2 for s in S2)
+    bwd_src = "unet_studio_tpu_torch/csrc/conv_bwd.cu"
+    conv_bwd = torch.ops.aten.convolution_backward
+    dtypes = ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32"))
+
+    def lib_bwd(g, x, w, stride, pad, transposed, mask):
+        """One cuDNN convolution_backward on NCDHW views of the volumes."""
+        return lambda: conv_bwd(K.ncdhw(g), K.ncdhw(x), w, None, [stride] * 3, [pad] * 3,
+                                [1] * 3, transposed, [0] * 3, 1, mask)
+
+    # K1 as the stride-1 conv's input gradient (flipped, transposed weights)
+    errs = {}
+    for dims, c in ((S0, 16), (S1, 32), (S2, 64)):
+        for dtype, tol, tag in dtypes:
+            g, w = rnd((*dims, c), dtype), rnd((c, c, 3, 3, 3), scale=(27 * c) ** -0.5)
+            zero = torch.zeros(c, device=g.device)
+            dx = K.conv3x3x3_dx(g, w)
+            e = rel_err(dx, K.conv3_plain([g], [None], K.flip_transpose(w), zero, 1))
+            require(e < tol, f"conv3x3x3_dx C={c} {tag}: err {e}")
+            errs[f"{tag}_rel_c{c}"] = e
+            if c == 16 and dtype == torch.bfloat16:
+                errs["bf16_abs"] = abs_err(dx, K.conv3_plain([g], [None], K.flip_transpose(w),
+                                                             zero, 1))
+                ms = timed_ms(lambda: K.conv3x3x3_dx(g, w))
+                plain_ms = timed_ms(lambda: K.conv3_plain([g], [None], K.flip_transpose(w),
+                                                          zero, 1))
+                lib_ms = timed_ms(lib_bwd(g, g, w.to(dtype), 1, 1, False, [True, False, False]))
+                timing = (ms, plain_ms, lib_ms, 4 * c * nvox(dims), 2 * 27 * c * c * nvox(dims))
+            del g, dx
+    record("conv3x3x3_dx", "unet_studio_tpu_torch/csrc/conv.cu",
+           "unet_studio_tpu/ops/pallas_conv.py:766", K.conv3x3x3_dx, errs, *timing,
+           BF16_TENSOR_FLOPS)
+
+    def dw_phase(name, wrapper, plain_fn, cases, replaces, lib_call, nbytes, ops):
+        """dW kernel vs twin on each (A dims, CA, B dims, CB) case; the
+        first case, in bf16, is the timed one."""
+        errs = {}
+        for i, (a_dims, ca, b_dims, cb) in enumerate(cases):
+            for dtype, _, tag in dtypes:
+                x, g = rnd((*a_dims, ca), dtype), rnd((*b_dims, cb), dtype)
+                got, ref = wrapper(x, g), plain_fn(x, g)
+                e = rel_err(got, ref)
+                require(e < SUM_TOL, f"{name} {ca}->{cb} {tag}: err {e}")
+                errs[f"{tag}_rel_{ca}_{cb}"] = e
+                if i == 0 and dtype == torch.bfloat16:
+                    errs["bf16_abs"] = abs_err(got, ref)
+                    timing = (timed_ms(lambda: wrapper(x, g)), timed_ms(lambda: plain_fn(x, g)),
+                              timed_ms(lib_call(x, g)), nbytes, ops)
+                del x, g, got, ref
+        record(name, bwd_src, replaces, wrapper, errs, *timing, BF16_TENSOR_FLOPS)
+
+    def dw_plain(ks, stride, pad, swap=False):
+        def fn(x, g):
+            a, b = (g, x) if swap else (x, g)
+            out = K.conv_dw_plain(a, b, ks, stride, pad)
+            # (tap, CA, CB) -> (CB, CA, k, k, k): (Co, Ci, ...) for K5/K6,
+            # and for K9 (A = g, B = x) the transposed conv's (Ci, Co, ...)
+            return out.reshape(ks, ks, ks, a.shape[-1], b.shape[-1]).permute(4, 3, 0, 1, 2)
+        return fn
+
+    def weight(shape, like):
+        return torch.empty(shape, device=like.device, dtype=like.dtype)
+
+    # K5: stride 1, C->C at every kernel level and the entry's 1->16
+    dw_phase("conv3x3x3_dw", K.conv3x3x3_dw, dw_plain(3, 1, 1),
+             ((S0, 16, S0, 16), (S1, 32, S1, 32), (S2, 64, S2, 64), (S0, 1, S0, 16)),
+             "unet_studio_tpu/ops/pallas_conv.py:583",
+             lambda x, g: lib_bwd(g, x, weight((16, 16, 3, 3, 3), x), 1, 1, False,
+                                  [False, True, False]),
+             4 * 16 * nvox(S0), 2 * 27 * 16 * 16 * nvox(S0))
+    # K6: stride 2, C -> 2C (64 -> 128 included)
+    dw_phase("conv3x3x3_s2_dw", K.conv3x3x3_s2_dw, dw_plain(3, 2, 1),
+             ((S0, 16, S1, 32), (S1, 32, S2, 64), (S2, 64, S3, 128)),
+             "unet_studio_tpu/ops/packed.py:897",
+             lambda x, g: lib_bwd(g, x, weight((32, 16, 3, 3, 3), x), 2, 1, False,
+                                  [False, True, False]),
+             2 * 16 * nvox(S0) + 2 * 32 * nvox(S1), 2 * 27 * 16 * 32 * nvox(S1))
+    # K9: the transposed conv's dW, x at level l+1 (2C), g at level l (C):
+    # the dW kernel with A = g and B = x
+    dw_phase("conv_trans2x_dw", K.conv_trans2x_dw, dw_plain(2, 2, 0, swap=True),
+             ((S1, 32, S0, 16), (S2, 64, S1, 32)), "unet_studio_tpu/ops/packed.py:782",
+             lambda x, g: lib_bwd(g, x, weight((32, 16, 2, 2, 2), x), 2, 0, True,
+                                  [False, True, False]),
+             2 * 16 * nvox(S0) + 2 * 32 * nvox(S1), 2 * 8 * 16 * 32 * nvox(S1))
+
+    # K7: the stride-2 conv's dx, g at level l+1 (2C) -> dx at level l (C)
+    errs = {}
+    for dims, c in ((S0, 16), (S1, 32), (S2, 64)):
+        half = tuple(s // 2 for s in dims)
+        for dtype, tol, tag in dtypes:
+            g, w = rnd((*half, 2 * c), dtype), rnd((2 * c, c, 3, 3, 3), scale=(27 * c) ** -0.5)
+            dx, ref = K.conv3x3x3_s2_dx(g, w), K.conv3_s2_dx_plain(g, w)
+            e = rel_err(dx, ref)
+            require(e < tol and dx.shape == (*dims, c), f"conv3x3x3_s2_dx C={c} {tag}: err {e}")
+            errs[f"{tag}_rel_c{c}"] = e
+            if c == 16 and dtype == torch.bfloat16:
+                errs["bf16_abs"] = abs_err(dx, ref)
+                ms = timed_ms(lambda: K.conv3x3x3_s2_dx(g, w))
+                plain_ms = timed_ms(lambda: K.conv3_s2_dx_plain(g, w))
+                x = torch.empty((*dims, c), device=g.device, dtype=dtype)
+                lib_ms = timed_ms(lib_bwd(g, x, w.to(dtype), 2, 1, False, [True, False, False]))
+                timing = (ms, plain_ms, lib_ms, 2 * c * nvox(dims) + 2 * 2 * c * nvox(half),
+                          2 * 27 * c * 2 * c * nvox(half))
+                del x
+            del g, dx, ref
+    record("conv3x3x3_s2_dx", bwd_src, "unet_studio_tpu/ops/packed.py:1008",
+           K.conv3x3x3_s2_dx, errs, *timing, BF16_TENSOR_FLOPS)
+
+    # K8: the transposed conv's dx, g at level l (C) -> dx at level l+1 (2C)
+    errs = {}
+    for dims, co in ((S0, 16), (S1, 32)):
+        half = tuple(s // 2 for s in dims)
+        for dtype, tol, tag in dtypes:
+            g, w = rnd((*dims, co), dtype), rnd((2 * co, co, 2, 2, 2), scale=(8 * co) ** -0.5)
+            dx, ref = K.conv_trans2x_dx(g, w), K.conv_trans2x_dx_plain(g, w)
+            e = rel_err(dx, ref)
+            require(e < tol and dx.shape == (*half, 2 * co), f"conv_trans2x_dx Co={co} {tag}: {e}")
+            errs[f"{tag}_rel_co{co}"] = e
+            if co == 16 and dtype == torch.bfloat16:
+                errs["bf16_abs"] = abs_err(dx, ref)
+                ms = timed_ms(lambda: K.conv_trans2x_dx(g, w))
+                plain_ms = timed_ms(lambda: K.conv_trans2x_dx_plain(g, w))
+                gl, wl = K.ncdhw(g), w.to(dtype)
+                lib_ms = timed_ms(lambda: F.conv3d(gl, wl, stride=2))
+                timing = (ms, plain_ms, lib_ms, 2 * co * nvox(dims) + 2 * 2 * co * nvox(half),
+                          2 * 8 * 2 * co * co * nvox(half))
+            del g, dx, ref
+    record("conv_trans2x_dx", bwd_src, "unet_studio_tpu/ops/packed.py:768",
+           K.conv_trans2x_dx, errs, *timing, BF16_TENSOR_FLOPS)
+
+    # K2 norm_bwd: inputs of nonzero mean with g correlated with x, so
+    # neither sum cancels and the gate measures the kernel's sums
+    errs = {}
+    for dims, c in ((S0, 16), (S1, 32), (S2, 64)):
+        for dtype, _, tag in dtypes:
+            x = rnd((*dims, c), dtype) + 0.25
+            g = (0.5 * x.float() + rnd((*dims, c)) + 0.25).to(dtype)
+            st, n = R.channel_sum_sq_plain(x), nvox(dims)
+            mean = st[0] / n
+            inv = torch.rsqrt((st[1] / n - mean * mean).clamp_min(0) + 1e-5)
+            got, ref = R.norm_bwd_sums(g, x, mean, inv), R.norm_bwd_sums_plain(g, x, mean, inv)
+            e = rel_err(got, ref)
+            require(e < SUM_TOL, f"norm_bwd_sums C={c} {tag}: err {e}")
+            errs[f"{tag}_rel_c{c}"] = e
+            if c == 16 and dtype == torch.bfloat16:
+                errs["bf16_abs"] = abs_err(got, ref)
+                ms = timed_ms(lambda: R.norm_bwd_sums(g, x, mean, inv))
+                plain_ms = timed_ms(lambda: R.norm_bwd_sums_plain(g, x, mean, inv))
+                timing = (ms, plain_ms, None, 2 * 2 * c * n, 5 * c * n)
+            del x, g
+    record("norm_bwd_sums", "unet_studio_tpu_torch/csrc/reduce.cu",
+           "unet_studio_tpu/ops/packed.py:1292", R.norm_bwd_sums, errs, *timing, F32_FLOPS)
+    torch.cuda.empty_cache()
+
+
+def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
+    """The train step at full width (the model's grid unless ``dhw``):
+    kernels vs twins (f32), bf16 vs f32, three bf16 steps, launches, time
+    split, busy share, peak memory."""
+    import torch
+
+    from unet_studio_tpu_torch.engine.optimizer import init_opt_state
+    from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step
+    from unet_studio_tpu_torch.models import unet3d as U
+
+    model = U.UNet3d.create(1, 3, arch, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    images, labels = phantom_batch(dhw or model.dim_dhw, 2, gen, dev)
+    step32, _ = build_train_step(model, TrainParam(batch_size=2, compute_dtype="float32"),
+                                 device=dev)
+    step16, valid16 = build_train_step(model, TrainParam(batch_size=2), device=dev)
+
+    # (a) f32: the kernels' step against the twins' step
+    g_k, m_k, loss_k = step32.grads(images, labels)
+    g_t, m_t, loss_t = step32.grads(images, labels, plain=True)
+    l2_a, worst_a, name_a = grad_errs(g_k, g_t)
+    loss_a = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
+    del g_t
+    # (b) bf16 against f32, both through the kernels
+    g_b, m_b, loss_b = step16.grads(images, labels)
+    l2_b, worst_b, name_b = grad_errs(g_b, g_k)
+    loss_rel_b = abs(float(loss_b) - float(loss_k)) / abs(float(loss_k))
+    del g_k, g_b
+    parity = {"f32_kernels_vs_twins": {"grad_l2": l2_a, "grad_worst": worst_a,
+                                       "worst_tensor": name_a, "loss_rel": loss_a},
+              "bf16_vs_f32": {"grad_l2": l2_b, "grad_worst": worst_b, "worst_tensor": name_b,
+                              "loss_rel": loss_rel_b},
+              "loss_f32": float(loss_k), "loss_bf16": float(loss_b)}
+    print(json.dumps({"train_parity": parity}), flush=True)
+    require(l2_a < STEP_F32_TOL and worst_a < STEP_F32_TOL and loss_a < STEP_F32_TOL,
+            f"f32 train step, kernels vs twins: {parity['f32_kernels_vs_twins']}")
+    require(loss_rel_b < STEP_BF16_LOSS_TOL and l2_b < STEP_BF16_GRAD_TOL,
+            f"bf16 train step vs f32: {parity['bf16_vs_f32']}")
+    torch.cuda.empty_cache()
+
+    # (c, d) three bf16 steps at lr 1e-2; the first is the counted run
+    opt = init_opt_state(model.params())
+    wrappers = [w for _, w in records.values()]
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split = {}
+    t = time.perf_counter()
+    opt, metrics, loss1 = step16(opt, images, labels, None, 1e-2, timings=split)
+    torch.cuda.synchronize()
+    split["step_s"] = time.perf_counter() - t
+    for rec, w in records.values():
+        rec["launches"] = w.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    per_item = {k: r["launches"] / images.shape[0] for k, (r, _) in records.items()}
+    log("launches per train-step item: " + json.dumps(per_item))
+    require(all(r["launches"] > 0 for r, _ in records.values()),
+            "a kernel of the train step was not launched")
+    losses = [float(loss1)]
+    step_profile = {}
+
+    def second():
+        nonlocal opt
+        opt, _, loss = step16(opt, images, labels, None, 1e-2)
+        losses.append(float(loss))
+
+    step_profile = profile_forward(second, top=15, grad=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    opt, _, loss3 = step16(opt, images, labels, None, 1e-2)
+    torch.cuda.synchronize()
+    step3_s = time.perf_counter() - t
+    losses.append(float(loss3))
+    _, _, loss_after = step16.grads(images, labels)
+    losses.append(float(loss_after))
+    val = valid16(images, labels)
+    require(all(bool(torch.isfinite(v).all()) for v in (metrics, val)) and metrics.shape == (4,)
+            and val.shape == (3,), "train metrics or validation losses")
+    train = {"losses": losses, "level0_metrics_step1": metrics.tolist(),
+             "valid_ce_dice_mse": val.tolist(), "step1_split_s": split, "step3_s": step3_s,
+             "peak_mem_gib": peak_gib, "card": card}
+    print(json.dumps({"train_step": train}), flush=True)
+    print(json.dumps({"train_profile": step_profile}), flush=True)
+    require(all(np.isfinite(losses)), f"train losses {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall over three steps: {losses}")
 
 
 def main() -> int:
@@ -351,7 +671,9 @@ def main() -> int:
                 errs["bf16_abs"] = abs_err(st, sr)
                 ms = timed_ms(lambda: R.channel_sum_sq(x))
                 plain_ms = timed_ms(lambda: R.channel_sum_sq_plain(x))
-                timing = (ms, plain_ms, None, 2 * c * nvox(dims), 3 * c * nvox(dims))
+                # library yardstick: the same statistics in one call
+                lib_ms = timed_ms(lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0))
+                timing = (ms, plain_ms, lib_ms, 2 * c * nvox(dims), 3 * c * nvox(dims))
             del x
     record("channel_sum_sq", "unet_studio_tpu_torch/csrc/reduce.cu",
            "unet_studio_tpu/ops/packed.py:1292", R.channel_sum_sq, errs, *timing, F32_FLOPS)
@@ -436,10 +758,10 @@ def main() -> int:
     log(f"cli evaluate rc={rc} in {time.perf_counter() - t:.2f}s")
     require(rc == 0, f"cli evaluate returned {rc}")
     for rec, wrapper in records.values():
-        rec["launches"] = wrapper.launches
+        rec["launches_evaluate"] = wrapper.launches
     log("launches in the evaluate run: "
-        + json.dumps({k: r["launches"] for k, (r, _) in records.items()}))
-    require(all(r["launches"] > 0 for r, _ in records.values()),
+        + json.dumps({k: r["launches_evaluate"] for k, (r, _) in records.items()}))
+    require(all(r["launches_evaluate"] > 0 for r, _ in records.values()),
             "a kernel of the evaluate path was not launched")
     out = read_nifti(src + ".result.nii.gz")
     require(out.data.shape == native, f"result shape {out.data.shape}")
@@ -478,7 +800,13 @@ def main() -> int:
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
     print(json.dumps({"end_to_end": e2e}), flush=True)
     print(json.dumps({"infer_profile": infer_profile}), flush=True)
+    del engine, cases, case
+    torch.cuda.empty_cache()
 
+    phase5_backward_kernels(records, record, rnd, nvox, (S0, S1, S2))
+    phase6_train_step(records, spec_arch, dev, card)
+
+    log("all phases passed; wall time in the prefix")
     print(card)
     print(json.dumps({"kernels": [r for r, _ in records.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch twins on
-the card, at small shapes with odd sizes.  These tests need an NVIDIA
+"""The port's CUDA kernels (K1-K9, K2's two modes) against their plain
+PyTorch twins on the card, at small shapes with odd sizes.  These tests need an NVIDIA
 GPU and skip without one; run them there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -14,7 +14,13 @@ import pytest
 import torch
 
 from unet_studio_tpu_torch.ops import conv as K
-from unet_studio_tpu_torch.ops.reduce import channel_sum_sq, channel_sum_sq_plain
+from unet_studio_tpu_torch.ops.norm import InstanceNormTrain, instance_norm_train_plain
+from unet_studio_tpu_torch.ops.reduce import (
+    channel_sum_sq,
+    channel_sum_sq_plain,
+    norm_bwd_sums,
+    norm_bwd_sums_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +29,9 @@ F32_TOL = 1e-5
 # bf16: both sides take the same bf16-rounded inputs and accumulate in
 # f32, but the rounding of the f32 result to bf16 can land one ulp apart
 BF16_TOL = 1e-2
+# f32 weight gradients and K2 sums (any input dtype): f32 sums over the
+# volume in another order than the twin's
+SUM_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +52,7 @@ def _pro(rng, c, dev, act):
 
 
 def _rel(a, b):
-    a, b = a.float(), b.float()
+    a, b = a.detach().float(), b.detach().float()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
 
 
@@ -111,6 +120,136 @@ def test_sum_sq(dev, dtype, c):
     rng = np.random.default_rng(c)
     x = _t(rng, (5, 7, 9, c), dev, dtype) + 0.5
     assert _rel(channel_sum_sq(x), channel_sum_sq_plain(x)) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["s1_16", "s1_32", "s1_64", "entry", "s2_16", "s2_64", "trans"])
+def test_weight_gradients(dev, dtype, case):
+    """K5 (stride 1, the entry's Ci=1 included), K6 and K9 against the
+    per-tap matmul twin."""
+    rng = np.random.default_rng(len(case))
+    dims = (6, 10, 14)
+    half = (3, 5, 7)
+    if case.startswith("s1"):
+        c = int(case[3:])
+        x, g = _t(rng, (*dims, c), dev, dtype), _t(rng, (*dims, c), dev, dtype)
+        got, ref = K.conv3x3x3_dw(x, g), K.conv_dw_plain(x, g, 3, 1, 1)
+        ref = ref.reshape(3, 3, 3, c, c).permute(4, 3, 0, 1, 2)
+    elif case == "entry":
+        x, g = _t(rng, (*dims, 1), dev, dtype), _t(rng, (*dims, 16), dev, dtype)
+        got = K.conv3x3x3_dw(x, g)
+        ref = K.conv_dw_plain(x, g, 3, 1, 1).reshape(3, 3, 3, 1, 16).permute(4, 3, 0, 1, 2)
+    elif case.startswith("s2"):
+        c = int(case[3:])
+        x, g = _t(rng, (*dims, c), dev, dtype), _t(rng, (*half, 2 * c), dev, dtype)
+        got = K.conv3x3x3_s2_dw(x, g)
+        ref = K.conv_dw_plain(x, g, 3, 2, 1).reshape(3, 3, 3, c, 2 * c).permute(4, 3, 0, 1, 2)
+    else:
+        x, g = _t(rng, (*half, 32), dev, dtype), _t(rng, (*dims, 16), dev, dtype)
+        got = K.conv_trans2x_dw(x, g)
+        ref = K.conv_dw_plain(g, x, 2, 2, 0).reshape(2, 2, 2, 16, 32).permute(4, 3, 0, 1, 2)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got, ref) < SUM_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,c", [("s1", 16), ("s1", 64), ("s2", 16), ("s2", 64),
+                                    ("trans", 16), ("trans", 32)])
+def test_input_gradients(dev, dtype, kind, c):
+    """K1 on g (stride 1), K7 (stride 2, C -> 2C) and K8 (transposed,
+    2C -> C) against their twins."""
+    rng = np.random.default_rng(c + 9)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    if kind == "s1":
+        g, w = _t(rng, (5, 6, 9, c), dev, dtype), _t(rng, (c, c, 3, 3, 3), dev, scale=0.1)
+        got = K.conv3x3x3_dx(g, w)
+        ref = K.conv3_plain([g], [None], K.flip_transpose(w), torch.zeros(c, device=dev), 1)
+    elif kind == "s2":
+        g, w = _t(rng, (3, 5, 7, 2 * c), dev, dtype), _t(rng, (2 * c, c, 3, 3, 3), dev, scale=0.1)
+        got, ref = K.conv3x3x3_s2_dx(g, w), K.conv3_s2_dx_plain(g, w)
+        assert got.shape == (6, 10, 14, c)
+    else:
+        g, w = _t(rng, (6, 10, 14, c), dev, dtype), _t(rng, (2 * c, c, 2, 2, 2), dev, scale=0.2)
+        got, ref = K.conv_trans2x_dx(g, w), K.conv_trans2x_dx_plain(g, w)
+        assert got.shape == (3, 5, 7, 2 * c)
+    assert got.dtype == dtype and _rel(got, ref) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_norm_bwd_sums(dev, dtype, c):
+    """g correlated with x and of nonzero mean, so neither sum cancels."""
+    rng = np.random.default_rng(c + 1)
+    x = _t(rng, (5, 7, 9, c), dev, dtype) + 0.5
+    g = (0.5 * x.float() + _t(rng, (5, 7, 9, c), dev) + 0.25).to(dtype)
+    st = channel_sum_sq_plain(x)
+    n = x.numel() // c
+    mean = st[0] / n
+    inv = torch.rsqrt((st[1] / n - mean * mean).clamp_min(0) + 1e-5)
+    assert _rel(norm_bwd_sums(g, x, mean, inv), norm_bwd_sums_plain(g, x, mean, inv)) < SUM_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["s1", "entry", "dual", "s2", "trans", "norm"])
+def test_functions_on_the_card(dev, dtype, kind):
+    """Each autograd Function (its forward and backward kernels) against
+    autograd through its forward twin.  f32: 1e-4 (the norm's backward
+    formula against autograd's chain rule, both in f32).  bf16: the
+    conv Functions 1e-2; the norm 4e-2, since its backward runs its
+    elementwise steps in bf16, as the JAX VJP does, where the twin's
+    autograd runs the statistics' branch in f32."""
+    rng = np.random.default_rng(3)
+    c, dims = 16, (6, 10, 14)
+    tol = F32_TOL * 10 if dtype == torch.float32 else BF16_TOL
+    if kind == "norm" and dtype == torch.bfloat16:
+        tol = 4e-2
+
+    def r(shape, scale=1.0, dt=torch.float32):
+        return _t(rng, shape, dev, dt, scale)
+
+    if kind == "s1":
+        args = [r((*dims, c), dt=dtype), r((c, c, 3, 3, 3), 0.1), r(c)]
+        fn, plain = K.ConvS1Fn.apply, lambda x, w, b: K.conv3_plain([x], [None], w, b, 1)
+    elif kind == "entry":
+        args = [r((*dims, 1), dt=dtype), r((c, 1, 3, 3, 3), 0.3), r(c)]
+        fn, plain = K.ConvEntryFn.apply, lambda x, w, b: K.conv3_plain([x], [None], w, b, 1)
+    elif kind == "dual":
+        args = [r((*dims, c), dt=dtype), r((*dims, c), dt=dtype), r((c, 2 * c, 3, 3, 3), 0.1), r(c)]
+        fn = K.ConvDualFn.apply
+        plain = lambda xa, xb, w, b: K.conv3_plain([xa, xb], [None, None], w, b, 1)  # noqa: E731
+    elif kind == "s2":
+        args = [r((*dims, c), dt=dtype), r((2 * c, c, 3, 3, 3), 0.1), r(2 * c)]
+        fn, plain = K.ConvS2Fn.apply, lambda x, w, b: K.conv3_plain([x], [None], w, b, 2)
+    elif kind == "trans":
+        args = [r((3, 5, 7, 2 * c), dt=dtype), r((2 * c, c, 2, 2, 2), 0.2), r(c)]
+        fn, plain = K.ConvTrans2xFn.apply, K.conv_trans2x_plain
+    else:
+        args = [r((*dims, c), 2.0, dtype) + 0.5, r(c) + 1.0, r(c)]
+        fn, plain = InstanceNormTrain.apply, instance_norm_train_plain
+    mine = [a.clone().requires_grad_(kind != "entry" or i > 0) for i, a in enumerate(args)]
+    ref = [a.clone().requires_grad_(kind != "entry" or i > 0) for i, a in enumerate(args)]
+    y = fn(*mine)
+    yr = plain(*ref)
+    gy = r(tuple(y.shape), dt=y.dtype)
+    y.backward(gy)
+    yr.backward(gy)
+    assert _rel(y, yr) < tol
+    for a, b in zip(mine, ref):
+        if a.requires_grad:
+            assert a.grad.dtype == b.grad.dtype
+            assert _rel(a.grad, b.grad) < tol
+
+
+def test_backward_rejects(dev):
+    x = torch.zeros((4, 4, 4, 16), device=dev)
+    with pytest.raises(ValueError):
+        K.conv3x3x3_dw(x, torch.zeros((4, 4, 4, 16), device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        K.conv3x3x3_s2_dw(x, torch.zeros((3, 2, 2, 32), device=dev))
+    with pytest.raises(ValueError):
+        K.conv_trans2x_dx(torch.zeros((3, 4, 4, 16), device=dev), torch.zeros(32, 16, 2, 2, 2, device=dev))
+    with pytest.raises(ValueError):
+        norm_bwd_sums(x, x[:2], torch.zeros(16, device=dev), torch.ones(16, device=dev))
 
 
 def test_rejects(dev):

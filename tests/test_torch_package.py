@@ -10,10 +10,11 @@ import torch
 
 from unet_studio_tpu_torch import cli
 from unet_studio_tpu_torch.engine.evaluate import EvaluateEngine
+from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step
 from unet_studio_tpu_torch.models.serialize import load_model
 from unet_studio_tpu_torch.models.unet3d import UNet3d
 from unet_studio_tpu_torch.ops import conv as K
-from unet_studio_tpu_torch.ops.reduce import channel_sum_sq
+from unet_studio_tpu_torch.ops.reduce import channel_sum_sq, norm_bwd_sums
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = os.path.join(ROOT, "tests", "fixtures", "golden", "model.nz")
@@ -60,6 +61,9 @@ def test_entry_points_need_a_card_or_cpu_request(monkeypatch):
         EvaluateEngine(model)
     with pytest.raises(RuntimeError):
         cli.main(["--action", "evaluate", "--model", MODEL, "--source", MODEL])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train_step(model, TrainParam())
+    build_train_step(model, TrainParam(), device="cpu")
 
 
 def test_wrappers_take_no_other_device():
@@ -72,4 +76,17 @@ def test_wrappers_take_no_other_device():
         K.conv3x3x3_s1(x, w, b)
     with pytest.raises(ValueError, match="expected cuda or cpu"):
         channel_sum_sq(x)
-    assert K.conv3x3x3_s1.launches == 0
+    x2 = torch.empty((2, 2, 2, 32), device="meta")
+    calls = [
+        (K.conv3x3x3_dx, (x, w)),
+        (K.conv3x3x3_dw, (x, x)),
+        (K.conv3x3x3_s2_dw, (torch.empty((4, 4, 4, 16), device="meta"), x2)),
+        (K.conv3x3x3_s2_dx, (x2, torch.empty((32, 16, 3, 3, 3), device="meta"))),
+        (K.conv_trans2x_dx, (x, torch.empty((32, 16, 2, 2, 2), device="meta"))),
+        (K.conv_trans2x_dw, (x2, x)),
+        (norm_bwd_sums, (x, x, b, b)),
+    ]
+    for fn, args in calls:
+        with pytest.raises(ValueError, match="expected cuda or cpu"):
+            fn(*args)
+    assert all(fn.launches == 0 for fn in K.WRAPPERS)

@@ -116,6 +116,20 @@ def from_jax_params(spec: UNetSpec, params_np: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def from_jax_opt_state(spec: UNetSpec, opt_state: dict) -> dict:
+    """The JAX package's SGD state (``{"momentum": {name: array}, "step":
+    int}``) -> the port's (``engine/optimizer.py``): momentum buffers in
+    torch layouts keyed like ``UNet3d.params()``, the step as an int.  The
+    buffers share the parameters' layouts, so ``from_jax_params`` maps
+    them (and JAX gradients alike)."""
+    sd = from_jax_params(spec, opt_state["momentum"])
+    momentum = {}
+    for name, _, which in param_order(spec):
+        mod, i, _ = name.split(".")
+        momentum[name] = sd[f"{mod}.{i}.{'weight' if which == 'w' else 'bias'}"]
+    return {"momentum": momentum, "step": int(np.asarray(opt_state["step"]))}
+
+
 def get_model_path(model_arg: str, zoo_dir: str | None = None) -> str:
     """--model resolution: append .nz, fall back to the zoo dir
     (train.cpp:1044-1052)."""

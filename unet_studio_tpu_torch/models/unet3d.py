@@ -1,6 +1,7 @@
-"""The 3D U-Net in PyTorch: parameter bookkeeping, the plain forward, and
-the inference forward through the CUDA kernels with deferred instance
-norm (the counterpart of unet_studio_tpu/models/unet3d.py).
+"""The 3D U-Net in PyTorch: parameter bookkeeping, the plain forward, the
+inference forward through the CUDA kernels with deferred instance norm,
+and the training forward through the kernels' autograd Functions (the
+counterpart of unet_studio_tpu/models/unet3d.py).
 
 * Activations are channels-last ``(N, D, H, W, C)`` at ``forward`` and
   ``(D, H, W, C)`` inside ``forward_fused``, as in the JAX package.
@@ -26,7 +27,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import conv as K
-from ..ops.conv import KERNEL_CHANNELS, activation, dhwc, ncdhw
+from ..ops.conv import KERNEL_CHANNELS, activation, activation_train, dhwc, ncdhw
+from ..ops.losses import ChannelLeading
+from ..ops.norm import InstanceNormTrain, instance_norm_train_plain
 from ..ops.reduce import channel_sum_sq, channel_sum_sq_plain
 from ..utils.device import resolve_device
 from .dsl import LayerSpec, UNetSpec, parse_architecture
@@ -399,6 +402,138 @@ def forward_fused(spec: UNetSpec, params: dict, x: torch.Tensor, *,
             results[level] = _materialize(r).x.float().unsqueeze(0)
         if spec.tails[level]:
             t = _run_level_fused(kn, params, f"decode_tail{level}", spec.tails[level], t)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# training forward through the kernels' autograd Functions
+# ---------------------------------------------------------------------------
+#
+# The counterpart of the JAX package's packed forward in training
+# (forward_packed(train=True), that is _run_level_packed(fuse=False)): no
+# deferred norm and no prologue.  Convs and norms at C in {16, 32, 64} go
+# through the custom-VJP Functions (forward and backward kernels); the
+# C >= 128 levels, the ks1 heads and the other layers run plain PyTorch
+# under autograd, as the JAX package leaves them to XLA (_conv_cv).
+
+
+class _TrainOps:
+    """The layers a training forward calls: the kernels' autograd
+    Functions, or, for ``plain=True``, their twins under plain autograd
+    (the reference a card run is held to)."""
+
+    def __init__(self, plain: bool):
+        if plain:
+            self.s1 = lambda x, w, b: K.conv3_plain([x], [None], w, b, 1)
+            self.entry = self.s1
+            self.dual = lambda xa, xb, w, b: K.conv3_plain([xa, xb], [None, None], w, b, 1)
+            self.s2 = lambda x, w, b: K.conv3_plain([x], [None], w, b, 2)
+            self.trans = K.conv_trans2x_plain
+            self.norm = instance_norm_train_plain
+        else:
+            self.s1, self.entry = K.ConvS1Fn.apply, K.ConvEntryFn.apply
+            self.dual, self.s2 = K.ConvDualFn.apply, K.ConvS2Fn.apply
+            self.trans, self.norm = K.ConvTrans2xFn.apply, InstanceNormTrain.apply
+
+
+def _ks1_conv(x, w, b):
+    """ks1 conv on channels-last ``x`` as one matmul, in x's dtype."""
+    y = x.reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1).to(x.dtype).T
+    return (y + b.to(x.dtype)).reshape(*x.shape[:-1], w.shape[0])
+
+
+def _run_level_train(ops: _TrainOps, params, mod_name, layers, x):
+    """One level of the training forward.  ``x``: a (D, H, W, C) tensor,
+    or a (skip, up) pair at a decoder entry."""
+    for i, layer in enumerate(layers):
+        w = params.get(f"{mod_name}.{i}.w")
+        b = params.get(f"{mod_name}.{i}.b")
+        if isinstance(x, tuple):
+            a, up = x
+            if (layer.kind == "conv" and layer.ks == 3 and layer.stride == 1
+                    and a.shape == up.shape and a.shape[-1] in KERNEL_CHANNELS
+                    and layer.in_c == 2 * a.shape[-1] and layer.out_c == a.shape[-1]):
+                x = activation_train(ops.dual(a, up, w, b), layer.act)
+                continue
+            x = torch.cat([a, up], dim=-1)
+        d, h, wd, c = x.shape
+        if layer.kind == "conv":
+            if layer.ks == 3 and layer.stride == 1 and layer.in_c == layer.out_c == c \
+                    and c in KERNEL_CHANNELS:
+                x = ops.s1(x, w, b)
+            elif layer.ks == 3 and layer.stride == 2 and c in KERNEL_CHANNELS \
+                    and layer.out_c == 2 * c and not (d % 2 or h % 2 or wd % 2):
+                x = ops.s2(x, w, b)
+            elif layer.ks == 3 and layer.stride == 1 and c == 1 \
+                    and layer.out_c in KERNEL_CHANNELS:
+                x = ops.entry(x, w, b)
+            elif layer.ks == 1 and layer.stride == 1:
+                x = _ks1_conv(x, w, b)
+            else:
+                y = F.conv3d(ncdhw(x), w.to(x.dtype), b.to(x.dtype), stride=layer.stride,
+                             padding=(layer.ks - 1) // 2)
+                x = dhwc(y).contiguous()
+        elif layer.kind == "conv_trans":
+            if c in KERNEL_CHANNELS and c == 2 * layer.out_c and layer.out_c in KERNEL_CHANNELS:
+                x = ops.trans(x, w, b)
+            else:
+                y = F.conv_transpose3d(ncdhw(x), w.to(x.dtype), b.to(x.dtype), stride=2)
+                x = dhwc(y).contiguous()
+        elif layer.kind == "max_pool":
+            x = dhwc(F.max_pool3d(ncdhw(x), 2, 2)).contiguous()
+        elif layer.kind == "upsample":
+            x = x.repeat_interleave(2, 0).repeat_interleave(2, 1).repeat_interleave(2, 2)
+        elif layer.kind == "norm":
+            if c in KERNEL_CHANNELS:
+                x = ops.norm(x, w, b)
+            else:
+                x = dhwc(_instance_norm(ncdhw(x), w, b)).contiguous()
+        elif layer.kind == "bnorm":
+            # batch statistics, as the JAX package trains (its running
+            # statistics are not updated by the train step either)
+            xf = x.float()
+            mean = xf.mean(dim=(0, 1, 2))
+            var = (xf - mean).square().mean(dim=(0, 1, 2))
+            x = _batch_norm(ncdhw(x), w, b, mean, var).permute(0, 2, 3, 4, 1)[0].contiguous()
+        x = activation_train(x, layer.act)
+    return x
+
+
+def forward_train(spec: UNetSpec, params: dict, x: torch.Tensor, *,
+                  compute_dtype=torch.bfloat16, plain: bool = False):
+    """The training forward of one item.  ``x``: (1, D, H, W, in_count).
+    Returns the per-level logits in f32: level 0 as ``ChannelLeading``
+    planes (C, 1, D, H, W) when its head is one ks1 conv (the loss's
+    layout, written by the head's matmul directly), the other levels
+    (1, D_l, H_l, W_l, out_count).  Differentiable in ``params``;
+    ``plain=True`` runs the kernels' twins under plain autograd."""
+    if x.shape[0] != 1:
+        raise ValueError(f"forward_train takes one item, got a batch of {x.shape[0]}")
+    ops = _TrainOps(plain)
+    t = x[0].to(compute_dtype).contiguous()
+    n_enc = len(spec.encoders)
+    skips = []
+    for level in range(n_enc):
+        t = _run_level_train(ops, params, f"encode{level}", spec.encoders[level], t)
+        if level < n_enc - 1:
+            skips.append(t)
+    results: list = [None] * len(spec.decoders)
+    for level in range(n_enc - 2, -1, -1):
+        t = _run_level_train(ops, params, f"decode{level}", spec.decoders[level],
+                             (skips[level], t))
+        skips[level] = None
+        head = spec.heads[level]
+        if level == 0 and len(head) == 1 and head[0].kind == "conv" and head[0].ks == 1 \
+                and head[0].act is None:
+            w, b = params["output0.0.w"], params["output0.0.b"]
+            planes = w.reshape(w.shape[0], -1).to(t.dtype) @ t.reshape(-1, t.shape[-1]).T
+            planes = planes + b.to(t.dtype)[:, None]
+            results[0] = ChannelLeading(planes.float().reshape(w.shape[0], 1, *t.shape[:3]))
+        elif head:
+            r = _run_level_train(ops, params, f"output{level}", head, t)
+            results[level] = r.float().unsqueeze(0)
+        if spec.tails[level]:
+            t = _run_level_train(ops, params, f"decode_tail{level}", spec.tails[level], t)
     return results
 
 

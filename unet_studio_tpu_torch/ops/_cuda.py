@@ -26,7 +26,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("conv.cu", "reduce.cu")
+SOURCES = ("conv.cu", "conv_bwd.cu", "reduce.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -47,6 +47,15 @@ _SIGNATURES = {
     "unet_trans2x": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, n_vox, c, out, dtype, stream
     "unet_channel_sum_sq": [_P, _L, _I, _P, _I, _P],
+    # g, x, mean, inv, n_vox, c, out, dtype, stream
+    "unet_channel_norm_bwd": [_P, _P, _P, _P, _L, _I, _P, _I, _P],
+    # a, AD, AH, AW, ca, b, BD, BH, BW, cb, ks, stride, pad, part, nblk, out,
+    # dtype, stream
+    "unet_conv_dw": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
+                     _I, _P],
+    # g, co, w, dx, D, H, W, ci, dtype, stream
+    "unet_conv3_s2_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    "unet_trans2x_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,13 @@
-"""Convolution kernels of the inference forward: K1 (3x3x3 stride 1, with
-its 2C->C dual-input and 1->C entry forms), K3 (3x3x3 stride 2) and K4
-(ks2/stride-2 transposed conv), each with its plain PyTorch twin.
+"""Convolution kernels of the U-Net, each with its plain PyTorch twin.
+
+Forward: K1 (3x3x3 stride 1, with its 2C->C dual-input and 1->C entry
+forms), K3 (3x3x3 stride 2) and K4 (ks2/stride-2 transposed conv).
+Backward (``csrc/conv_bwd.cu``): the weight gradients K5 (stride 1), K6
+(stride 2) and K9 (transposed), and the input gradients K7 (stride 2) and
+K8 (transposed); the stride-1 input gradient is K1 on the output
+gradient with flipped, transposed weights.  One ``torch.autograd.Function``
+per forward kernel (``ConvS1Fn``, ``ConvEntryFn``, ``ConvDualFn``,
+``ConvS2Fn``, ``ConvTrans2xFn``) ties the two together for training.
 
 Layouts at every function here: activations channels-last ``(D, H, W,
 C)``, contiguous; weights in the torch layout of the ``.nz`` file
@@ -21,6 +28,9 @@ The twins compute in f32 from the inputs and weights rounded to the
 compute dtype, as the kernels do.  With ``atomicAdd`` in the kernels'
 stats epilogue the order of that sum changes from run to run, so the
 stats agree with the twin's to f32 rounding of a long sum, not bitwise.
+The weight gradients sum over the volume in another order than the
+twins' matmuls (deterministically: partial sums per block, then one
+ordered sum), so they too agree to f32 rounding of a long sum.
 """
 
 from __future__ import annotations
@@ -54,6 +64,30 @@ def activation(x: torch.Tensor, act: str | None) -> torch.Tensor:
     raise ValueError(act)
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """Leaky ReLU (slope 0.01) whose gradient at 0 is 1, as
+    ``jax.nn.leaky_relu``'s (``where(x >= 0, x, 0.01 x)``); that of
+    ``F.leaky_relu`` is 0.01 there, and exact zeros are common in bf16.
+    Saves its output, which the next layer keeps anyway: y >= 0 exactly
+    where x >= 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = F.leaky_relu(x, 0.01)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y >= 0, g, g * 0.01)
+
+
+def activation_train(x: torch.Tensor, act: str | None) -> torch.Tensor:
+    """``activation`` with the JAX package's gradients (leaky ReLU: 1 at 0)."""
+    return _LeakyReLU.apply(x) if act == "leaky_relu" else activation(x, act)
+
+
 def ncdhw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(3, 0, 1, 2).unsqueeze(0)
 
@@ -84,6 +118,43 @@ def conv_trans2x_plain(x, w, b, prologue=None):
     y = F.conv_transpose3d(ncdhw(apply_prologue(x, prologue).float()),
                            w.to(dt).float(), b.float(), stride=2)
     return dhwc(y).to(dt).contiguous()
+
+
+def flip_transpose(w: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3, 3) -> (Ci, Co, 3, 3, 3) flipped in space: the weight
+    of the stride-1 conv's input gradient as a conv of g."""
+    return w.flip(2, 3, 4).transpose(0, 1)
+
+
+def conv_dw_plain(a, b, ks: int, stride: int, pad: int) -> torch.Tensor:
+    """Twin of the dW kernel: (ks^3, CA, CB) f32 with ``out[tap][i][j] =
+    sum_o a[stride*o + tap - pad][i] * b[o][j]`` over the voxels o of
+    ``b``, taps outside ``a`` reading zero: one matmul per tap."""
+    od, oh, ow, cb = b.shape
+    ca = a.shape[-1]
+    ap = F.pad(a.float(), (0, 0, pad, pad, pad, pad, pad, pad))
+    bf = b.float().reshape(-1, cb)
+
+    def span(k, n):
+        return slice(k, k + stride * (n - 1) + 1, stride)
+
+    taps = [ap[span(dz, od), span(dy, oh), span(dx, ow)].reshape(-1, ca).T @ bf
+            for dz in range(ks) for dy in range(ks) for dx in range(ks)]
+    return torch.stack(taps)
+
+
+def conv3_s2_dx_plain(g, w):
+    """Twin of K7: the transposed conv that is the stride-2 conv's adjoint."""
+    dt = g.dtype
+    dx = F.conv_transpose3d(ncdhw(g.float()), w.to(dt).float(), stride=2, padding=1,
+                            output_padding=1)
+    return dhwc(dx).to(dt).contiguous()
+
+
+def conv_trans2x_dx_plain(g, w):
+    """Twin of K8: the ks2/stride-2 conv of g with the transposed conv's weight."""
+    dt = g.dtype
+    return dhwc(F.conv3d(ncdhw(g.float()), w.to(dt).float(), stride=2)).to(dt).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +302,253 @@ def conv_trans2x(x, w, b, *, prologue=None):
     return y
 
 
-WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x)
+# ---------------------------------------------------------------------------
+# backward wrappers
+# ---------------------------------------------------------------------------
+
+
+def conv3x3x3_dx(g, w):
+    """K1 as the input gradient of the 3x3x3 stride-1 conv with weight
+    ``w`` (Co, Ci, 3, 3, 3): the conv of ``g`` (D, H, W, Co) with the
+    weight flipped and transposed, zero bias, in g's dtype.  Replaces
+    the ``conv_s1_packed`` call of unet_studio_tpu/ops/pallas_conv.py
+    ``_conv_s1_p_bwd`` (K1's Pallas kernel there too)."""
+    wt = flip_transpose(w)
+    zero = torch.zeros(wt.shape[0], dtype=torch.float32, device=g.device)
+    if g.device.type == "cpu":
+        return conv3_plain([g], [None], wt, zero, 1)
+    out = _launch_conv3([g], [None], wt, zero, 1, False, "conv3x3x3_dx")
+    conv3x3x3_dx.launches += 1
+    return out
+
+
+def _launch_dw(a, b, ks: int, stride: int, pad: int, name: str):
+    """(ks^3, CA, CB) f32 from the dW kernel (see ``conv_dw_plain``)."""
+    ca, cb = a.shape[-1], b.shape[-1]
+    _check_act(a, ca, name)
+    _check_act(b, cb, name)
+    if a.dtype != b.dtype:
+        raise ValueError(f"{name}: the two inputs differ in dtype")
+    if cb % 16 or (ca % 16 and not (ca == 1 and ks == 3 and stride == 1)):
+        raise ValueError(f"{name}: channels ({ca}, {cb}) must be multiples of 16 "
+                         "(or 1 for the stride-1 conv's input)")
+    if tuple(a.shape[:3]) != tuple(stride * s for s in b.shape[:3]):
+        raise ValueError(f"{name}: volumes {tuple(a.shape)} and {tuple(b.shape)} do not "
+                         f"match stride {stride}")
+    taps = ks ** 3
+    grid_y = (ca // min(ca, 16)) * (cb // 16)
+    # about four blocks of partial sums per SM, at most one per row of b
+    n_sm = torch.cuda.get_device_properties(a.device).multi_processor_count
+    nblk = max(1, min(b.shape[0] * b.shape[1], 4 * n_sm // grid_y))
+    part = torch.empty((nblk, taps, ca, cb), dtype=torch.float32, device=a.device)
+    out = torch.empty((taps, ca, cb), dtype=torch.float32, device=a.device)
+    p = _cuda.ptr
+    with torch.cuda.device(a.device):
+        rc = _cuda.lib().unet_conv_dw(
+            p(a), *a.shape[:3], ca, p(b), *b.shape[:3], cb, ks, stride, pad, p(part), nblk,
+            p(out), _cuda.DTYPE_CODES[a.dtype], _cuda.stream_ptr(a),
+        )
+    _cuda.check(rc, name)
+    return out
+
+
+def conv3x3x3_dw(x, g):
+    """K5: the f32 (Co, Ci, 3, 3, 3) weight gradient of the 3x3x3
+    stride-1 pad-1 conv with input ``x`` (D, H, W, Ci), Ci = 1 for the
+    entry conv, and output gradient ``g`` (D, H, W, Co).  Replaces
+    unet_studio_tpu/ops/pallas_conv.py ``_dw_kernel`` (in ``conv_s1_p``'s
+    and ``conv_entry_p``'s VJPs)."""
+    if x.device.type == "cpu":
+        out = conv_dw_plain(x, g, 3, 1, 1)
+    else:
+        out = _launch_dw(x, g, 3, 1, 1, "conv3x3x3_dw")
+        conv3x3x3_dw.launches += 1
+    return out.reshape(3, 3, 3, x.shape[-1], g.shape[-1]).permute(4, 3, 0, 1, 2).contiguous()
+
+
+def conv3x3x3_s2_dw(x, g):
+    """K6: the f32 (Co, Ci, 3, 3, 3) weight gradient of the 3x3x3
+    stride-2 pad-1 conv with input ``x`` (D, H, W, Ci) and output gradient
+    ``g`` (D/2, H/2, W/2, Co).  Replaces unet_studio_tpu/ops/packed.py
+    ``_s2_dw_kernel`` (in ``conv_s2_p``'s VJP)."""
+    if x.device.type == "cpu":
+        out = conv_dw_plain(x, g, 3, 2, 1)
+    else:
+        out = _launch_dw(x, g, 3, 2, 1, "conv3x3x3_s2_dw")
+        conv3x3x3_s2_dw.launches += 1
+    return out.reshape(3, 3, 3, x.shape[-1], g.shape[-1]).permute(4, 3, 0, 1, 2).contiguous()
+
+
+def conv_trans2x_dw(x, g):
+    """K9: the f32 (Ci, Co, 2, 2, 2) weight gradient of the ks2/stride-2
+    transposed conv with input ``x`` (D, H, W, Ci) and output gradient
+    ``g`` (2D, 2H, 2W, Co): the dW kernel with the roles of x and g
+    swapped.  Replaces unet_studio_tpu/ops/packed.py ``_trans_dw_kernel``
+    (in ``conv_trans2x_p``'s VJP)."""
+    if x.device.type == "cpu":
+        out = conv_dw_plain(g, x, 2, 2, 0)
+    else:
+        out = _launch_dw(g, x, 2, 2, 0, "conv_trans2x_dw")
+        conv_trans2x_dw.launches += 1
+    return out.reshape(2, 2, 2, g.shape[-1], x.shape[-1]).permute(4, 3, 0, 1, 2).contiguous()
+
+
+def conv3x3x3_s2_dx(g, w):
+    """K7: the (2*OD, 2*OH, 2*OW, Ci) input gradient, in g's dtype, of
+    the 3x3x3 stride-2 pad-1 conv with weight ``w`` (Co, Ci, 3, 3, 3),
+    from ``g`` (OD, OH, OW, Co).  Replaces unet_studio_tpu/ops/packed.py
+    ``_s2_dx_kernel`` (in ``conv_s2_p``'s VJP)."""
+    if g.device.type == "cpu":
+        return conv3_s2_dx_plain(g, w)
+    od, oh, ow, co = g.shape
+    ci = w.shape[1]
+    _check_act(g, co, "conv3x3x3_s2_dx")
+    if tuple(w.shape) != (co, ci, 3, 3, 3) or co % 16 or ci % 16:
+        raise ValueError(f"conv3x3x3_s2_dx: weight {tuple(w.shape)} for Co={co} "
+                         "(Ci and Co must be multiples of 16)")
+    dt = g.dtype
+    # (Co, Ci, kz, ky, kx) -> (kz, ky, kx, Co, Ci)
+    wk = w.detach().to(dtype=dt).permute(2, 3, 4, 0, 1).contiguous()
+    dx = torch.empty((2 * od, 2 * oh, 2 * ow, ci), dtype=dt, device=g.device)
+    p = _cuda.ptr
+    with torch.cuda.device(g.device):
+        rc = _cuda.lib().unet_conv3_s2_dx(p(g), co, p(wk), p(dx), 2 * od, 2 * oh, 2 * ow, ci,
+                                          _cuda.DTYPE_CODES[dt], _cuda.stream_ptr(g))
+    _cuda.check(rc, "conv3x3x3_s2_dx")
+    conv3x3x3_s2_dx.launches += 1
+    return dx
+
+
+def conv_trans2x_dx(g, w):
+    """K8: the (D, H, W, Ci) input gradient, in g's dtype, of the
+    ks2/stride-2 transposed conv with weight ``w`` (Ci, Co, 2, 2, 2),
+    from ``g`` (2D, 2H, 2W, Co).  Replaces unet_studio_tpu/ops/packed.py
+    ``_trans_dx_kernel`` (in ``conv_trans2x_p``'s VJP)."""
+    if g.device.type == "cpu":
+        return conv_trans2x_dx_plain(g, w)
+    d2, h2, w2, co = g.shape
+    ci = w.shape[0]
+    _check_act(g, co, "conv_trans2x_dx")
+    if d2 % 2 or h2 % 2 or w2 % 2:
+        raise ValueError(f"conv_trans2x_dx: g {tuple(g.shape)} needs even D, H, W")
+    if tuple(w.shape) != (ci, co, 2, 2, 2) or co % 16 or ci % 16:
+        raise ValueError(f"conv_trans2x_dx: weight {tuple(w.shape)} for Co={co} "
+                         "(Ci and Co must be multiples of 16)")
+    dt = g.dtype
+    # (Ci, Co, kz, ky, kx) -> (kz, ky, kx, Co, Ci): parity-major
+    wk = w.detach().to(dtype=dt).permute(2, 3, 4, 1, 0).contiguous()
+    dx = torch.empty((d2 // 2, h2 // 2, w2 // 2, ci), dtype=dt, device=g.device)
+    p = _cuda.ptr
+    with torch.cuda.device(g.device):
+        rc = _cuda.lib().unet_trans2x_dx(p(g), co, p(wk), p(dx), d2 // 2, h2 // 2, w2 // 2, ci,
+                                         _cuda.DTYPE_CODES[dt], _cuda.stream_ptr(g))
+    _cuda.check(rc, "conv_trans2x_dx")
+    conv_trans2x_dx.launches += 1
+    return dx
+
+
+WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x,
+            conv3x3x3_dx, conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx, conv_trans2x_dx,
+            conv_trans2x_dw)
 for _fn in WRAPPERS:
     _fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions: the training path's convs (the counterparts of the JAX
+# package's custom-VJP primitives conv_s1_p, conv_entry_p, conv_s2_p and
+# conv_trans2x_p).  Each casts the incoming gradient to the activation
+# dtype, as those VJPs do; dW and db come back in f32.  They save the input
+# in the compute dtype and the f32 weight they were given, no copies.
+# ---------------------------------------------------------------------------
+
+
+def _bias_grad(g: torch.Tensor) -> torch.Tensor:
+    return g.sum(dim=(0, 1, 2), dtype=torch.float32)
+
+
+class ConvS1Fn(torch.autograd.Function):
+    """K1 C->C; backward: K1 on g (dx), K5 (dW), sum of g (db)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return conv3x3x3_s1(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = conv3x3x3_dx(g, w) if ctx.needs_input_grad[0] else None
+        return dx, conv3x3x3_dw(x, g), _bias_grad(g)
+
+
+class ConvEntryFn(torch.autograd.Function):
+    """K1 1->C on the network input; backward: K5 (dW) and db only.  The
+    input needs no gradient, so no K1 runs for it."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x)
+        return conv3x3x3_entry(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        return None, conv3x3x3_dw(x, g), _bias_grad(g)
+
+
+class ConvDualFn(torch.autograd.Function):
+    """K1 2C->C on (skip, up); backward: two C->C K1 launches on g, one
+    per half of the weight, so each half's dx lands contiguous in its own
+    buffer where the next backward kernels read it (one C->2C launch would
+    need a strided split copied out); two K5 launches for the two C x C
+    halves of dW; db = sum of g once (JAX's second conv has a zero bias)."""
+
+    @staticmethod
+    def forward(ctx, xa, xb, w, b):
+        ctx.save_for_backward(xa, xb, w)
+        return conv3x3x3_dual(xa, xb, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        xa, xb, w = ctx.saved_tensors
+        g = g.to(xa.dtype).contiguous()
+        c = xa.shape[-1]
+        dxa = conv3x3x3_dx(g, w[:, :c]) if ctx.needs_input_grad[0] else None
+        dxb = conv3x3x3_dx(g, w[:, c:]) if ctx.needs_input_grad[1] else None
+        dw = torch.cat([conv3x3x3_dw(xa, g), conv3x3x3_dw(xb, g)], dim=1)
+        return dxa, dxb, dw, _bias_grad(g)
+
+
+class ConvS2Fn(torch.autograd.Function):
+    """K3 C->2C; backward: K7 (dx), K6 (dW), sum of g (db)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return conv3x3x3_s2(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = conv3x3x3_s2_dx(g, w) if ctx.needs_input_grad[0] else None
+        return dx, conv3x3x3_s2_dw(x, g), _bias_grad(g)
+
+
+class ConvTrans2xFn(torch.autograd.Function):
+    """K4 2C->C; backward: K8 (dx), K9 (dW), sum of g (db)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return conv_trans2x(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = conv_trans2x_dx(g, w) if ctx.needs_input_grad[0] else None
+        return dx, conv_trans2x_dw(x, g), _bias_grad(g)

@@ -1,12 +1,14 @@
-"""K2: per-channel reductions of a channels-last volume, with the plain
-PyTorch twin.  So far the ``sum_sq`` mode of the JAX package's lane
-reduction (unet_studio_tpu/ops/packed.py ``_lane_reduce_kernel``,
-``lane_sum_sq``); its ``max`` and ``norm_bwd`` modes come with training.
+"""K2: per-channel reductions of a channels-last volume, with their plain
+PyTorch twins.  Two modes of the JAX package's lane reduction
+(unet_studio_tpu/ops/packed.py ``_lane_reduce_kernel``): ``sum_sq``
+(``lane_sum_sq``), the instance norm's statistics, and ``norm_bwd``
+(``norm_bwd_sums``), the two sums of its backward.  Its ``max`` mode
+comes with the augmentation.
 
-The wrapper runs the twin when the tensor lies on the CPU and launches
+Each wrapper runs its twin when the tensor lies on the CPU and launches
 the CUDA kernel (``csrc/reduce.cu``) when it lies on a card, where it
-raises on what the kernel does not take.  The kernel's atomics change
-the order of the sum from run to run: it agrees with the twin to f32
+raises on what the kernel does not take.  The kernels' atomics change
+the order of the sum from run to run: they agree with the twins to f32
 rounding of a long sum, not bitwise.
 """
 
@@ -23,20 +25,32 @@ def channel_sum_sq_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([flat.sum(0), (flat * flat).sum(0)])
 
 
+def norm_bwd_sums_plain(g, x, mean, inv) -> torch.Tensor:
+    """(2, C) f32: per-channel sum of g and of g * (x - mean) * inv."""
+    c = x.shape[-1]
+    gf, xf = g.reshape(-1, c).float(), x.reshape(-1, c).float()
+    return torch.stack([gf.sum(0), (gf * (xf - mean.float()) * inv.float()).sum(0)])
+
+
+def _check_volume(x: torch.Tensor, name: str) -> int:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensor on {x.device}, expected cuda or cpu")
+    if x.dtype not in _cuda.DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {x.dtype} not in (float32, bfloat16)")
+    c = x.shape[-1]
+    if c & (c - 1) or not 8 <= c <= 1024:
+        raise ValueError(f"{name}: C={c} must be a power of two in [8, 1024]")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: input must be contiguous and 16-byte aligned")
+    return c
+
+
 def channel_sum_sq(x: torch.Tensor) -> torch.Tensor:
     """K2 ``sum_sq``: (2, C) f32 per-channel sum and sum of squares of a
     (..., C) channels-last tensor, in one read."""
     if x.device.type == "cpu":
         return channel_sum_sq_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"channel_sum_sq: tensor on {x.device}, expected cuda or cpu")
-    if x.dtype not in _cuda.DTYPE_CODES:
-        raise ValueError(f"channel_sum_sq: dtype {x.dtype} not in (float32, bfloat16)")
-    c = x.shape[-1]
-    if c & (c - 1) or not 8 <= c <= 1024:
-        raise ValueError(f"channel_sum_sq: C={c} must be a power of two in [8, 1024]")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("channel_sum_sq: input must be contiguous and 16-byte aligned")
+    c = _check_volume(x, "channel_sum_sq")
     out = torch.zeros((2, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _cuda.lib().unet_channel_sum_sq(
@@ -48,4 +62,33 @@ def channel_sum_sq(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-channel_sum_sq.launches = 0
+def norm_bwd_sums(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                  inv: torch.Tensor) -> torch.Tensor:
+    """K2 ``norm_bwd``: (2, C) f32 per-channel sum of ``g`` and of
+    ``g * (x - mean) * inv`` for channels-last ``g`` and ``x`` of one
+    shape and dtype and f32 ``(C,)`` ``mean`` and ``inv``, in one read of
+    the two volumes (the instance norm's backward)."""
+    if g.device.type == "cpu":
+        return norm_bwd_sums_plain(g, x, mean, inv)
+    c = _check_volume(g, "norm_bwd_sums")
+    _check_volume(x, "norm_bwd_sums")
+    if x.shape != g.shape or x.dtype != g.dtype:
+        raise ValueError("norm_bwd_sums: g and x differ in shape or dtype")
+    mean = mean.to(device=g.device, dtype=torch.float32).contiguous()
+    inv = inv.to(device=g.device, dtype=torch.float32).contiguous()
+    if mean.shape != (c,) or inv.shape != (c,):
+        raise ValueError(f"norm_bwd_sums: mean and inv must be ({c},)")
+    out = torch.zeros((2, c), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = _cuda.lib().unet_channel_norm_bwd(
+            g.data_ptr(), x.data_ptr(), mean.data_ptr(), inv.data_ptr(), g.numel() // c, c,
+            out.data_ptr(), _cuda.DTYPE_CODES[g.dtype], _cuda.stream_ptr(g),
+        )
+    _cuda.check(rc, "norm_bwd_sums")
+    norm_bwd_sums.launches += 1
+    return out
+
+
+WRAPPERS = (channel_sum_sq, norm_bwd_sums)
+for _fn in WRAPPERS:
+    _fn.launches = 0
