@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K9, K2's two modes) against their plain
+"""The port's CUDA kernels (K1-K12, all of K2's modes) against their plain
 PyTorch twins on the card, at small shapes with odd sizes.  These tests need an NVIDIA
 GPU and skip without one; run them there with
 
@@ -15,6 +15,9 @@ import torch
 
 from unet_studio_tpu_torch.ops import conv as K
 from unet_studio_tpu_torch.ops.norm import InstanceNormTrain, instance_norm_train_plain
+from unet_studio_tpu_torch.ops import reduce as R
+from unet_studio_tpu_torch.ops import resample as RS
+from unet_studio_tpu_torch.ops import warp as W
 from unet_studio_tpu_torch.ops.reduce import (
     channel_sum_sq,
     channel_sum_sq_plain,
@@ -260,3 +263,70 @@ def test_rejects(dev):
         K.conv3x3x3_s2(x[:3], torch.zeros(32, 16, 3, 3, 3, device=dev), torch.zeros(32, device=dev))
     with pytest.raises(ValueError):
         channel_sum_sq(torch.zeros((4, 12), device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 128])
+def test_sum_and_sqdiff(dev, dtype, c):
+    rng = np.random.default_rng(c)
+    x = _t(rng, (5, 7, 9, c), dev, dtype) + 0.5
+    assert _rel(R.channel_sum(x), R.channel_sum_plain(x)) < SUM_TOL
+    mean = R.channel_sum_plain(x) / (5 * 7 * 9)
+    assert _rel(R.channel_sqdiff(x, mean), R.channel_sqdiff_plain(x, mean)) < SUM_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 9, 11), (192, 224, 192), (3,)])
+def test_volume_max(dev, dtype, shape):
+    """Exact, from a zero accumulator: an all-negative volume gives 0; the
+    odd sizes run the scalar tail."""
+    rng = np.random.default_rng(len(shape))
+    x = _t(rng, shape, dev, dtype)
+    assert float(R.volume_max(x)) == float(R.volume_max_plain(x))
+    assert float(R.volume_max(-x.abs() - 1)) == 0.0
+
+
+def _warp_field(shape, dev, worst: bool):
+    """Coordinates of a moderate affine with a smooth wiggle, or of the
+    worst default-options draw, where the window clamps taps."""
+    grid = RS.meshgrid_xyz(shape)
+    if worst:
+        m = RS.affine_matrix(rotation=(0.2, 0.2, 0.2), scaling=(1.5625,) * 3, shape_dhw=shape)
+        coords = RS.apply_affine(grid + 2.0 * torch.sin(grid * 0.3), m)
+    else:
+        m = RS.affine_matrix(translation=(1.2, -0.7, 0.4), rotation=(0.1, -0.15, 0.2),
+                             scaling=(1.1, 0.9, 1.05), shape_dhw=shape)
+        coords = RS.apply_affine(grid + 0.7 * torch.sin(grid * 0.4), m)
+    return coords.to(dev)
+
+
+@pytest.mark.parametrize("window,shape,worst", [
+    (w, shape, worst) for w in (True, False)
+    for shape, worst in (((12, 14, 16), False), ((12, 20, 16), False), ((24, 32, 28), True))
+] + [(False, (9, 13, 11), False)])
+def test_warp(dev, window, shape, worst):
+    """Labels exactly and the image to f32 rounding of its peak, in both
+    modes and both semantics (odd sizes without the window)."""
+    rng = np.random.default_rng(sum(shape))
+    img = torch.tensor(rng.random(shape, np.float32) * 2.5).to(dev)
+    lab = torch.tensor((rng.random(shape) * 6).astype(np.float32) // 1).to(dev)
+    coords = _warp_field(shape, dev, worst)
+    ki, kl = W.warp_image_label(img, lab, coords, window)
+    ti, tl = W.warp_image_label_plain(img, lab, coords, window)
+    assert torch.equal(kl, tl)
+    assert float((ki - ti).abs().max()) <= 1e-6 * float(ti.abs().max())
+    kv, tv = W.warp_linear(img, coords, window), W.warp_linear_plain(img, coords, window)
+    assert float((kv - tv).abs().max()) <= 1e-6 * float(tv.abs().max())
+
+
+def test_warp_rejects(dev):
+    img = torch.zeros((8, 8, 8), device=dev)
+    coords = torch.zeros((8, 8, 8, 3), device=dev)
+    with pytest.raises(ValueError):
+        W.warp_image_label(img, img + 256, coords, True)
+    with pytest.raises(ValueError):
+        W.warp_linear(img[:7].contiguous(), coords, True)
+    with pytest.raises(ValueError):
+        W.warp_linear(img, coords[:, :, :7].contiguous(), True)
+    with pytest.raises(ValueError):
+        W.warp_linear(img.double(), coords, False)

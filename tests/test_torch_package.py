@@ -10,11 +10,18 @@ import torch
 
 from unet_studio_tpu_torch import cli
 from unet_studio_tpu_torch.engine.evaluate import EvaluateEngine
-from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step
+from unet_studio_tpu_torch.engine.train import TrainEngine, TrainParam, build_train_step
 from unet_studio_tpu_torch.models.serialize import load_model
 from unet_studio_tpu_torch.models.unet3d import UNet3d
 from unet_studio_tpu_torch.ops import conv as K
-from unet_studio_tpu_torch.ops.reduce import channel_sum_sq, norm_bwd_sums
+from unet_studio_tpu_torch.ops import warp as W
+from unet_studio_tpu_torch.ops.reduce import (
+    channel_sqdiff,
+    channel_sum,
+    channel_sum_sq,
+    norm_bwd_sums,
+    volume_max,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = os.path.join(ROOT, "tests", "fixtures", "golden", "model.nz")
@@ -64,6 +71,10 @@ def test_entry_points_need_a_card_or_cpu_request(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_train_step(model, TrainParam())
     build_train_step(model, TrainParam(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainEngine(model, TrainParam())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--action", "train", "--model", MODEL, "--bids", ROOT])
 
 
 def test_wrappers_take_no_other_device():
@@ -85,8 +96,13 @@ def test_wrappers_take_no_other_device():
         (K.conv_trans2x_dx, (x, torch.empty((32, 16, 2, 2, 2), device="meta"))),
         (K.conv_trans2x_dw, (x2, x)),
         (norm_bwd_sums, (x, x, b, b)),
+        (channel_sum, (x,)),
+        (channel_sqdiff, (x, b)),
+        (volume_max, (x,)),
+        (W.warp_linear, (x[..., 0], x[..., :3], False)),
+        (W.warp_image_label, (x[..., 0], x[..., 0], x[..., :3], True)),
     ]
     for fn, args in calls:
         with pytest.raises(ValueError, match="expected cuda or cpu"):
             fn(*args)
-    assert all(fn.launches == 0 for fn in K.WRAPPERS)
+    assert all(fn.launches == 0 for fn in (*K.WRAPPERS, *W.WRAPPERS))

@@ -1,8 +1,10 @@
 """Command-line interface of the port: the JAX package's parser
 (unet_studio_tpu/cli.py), flag for flag, with ``--device`` choosing
-where it runs (default ``cuda``).  ``--action evaluate`` is ported;
-``train`` and ``qc`` are not yet.
+where it runs (default ``cuda``).  ``--action train`` and ``evaluate``
+are ported; ``qc`` is not yet.
 
+    python -m unet_studio_tpu_torch --action train --model m.nz \\
+        --bids bids_dir [--batch_size 2 --epoch 100 ...] [--device cpu|cuda]
     python -m unet_studio_tpu_torch --action evaluate --model m.nz \\
         --source img.nii.gz [--device cpu|cuda] [--compute_dtype float32]
 """
@@ -14,14 +16,16 @@ import glob
 import os
 import sys
 
-from .config.options import OPTION_TABLE
+import numpy as np
+
+from .config.options import OPTION_TABLE, default_option_values
 from .utils.assets import find_asset_root
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="unet-studio-tpu-torch",
-        description="3D U-Net brain segmentation on an NVIDIA GPU (evaluate)",
+        description="3D U-Net brain segmentation on an NVIDIA GPU (train/evaluate)",
     )
     p.add_argument("--action", choices=["train", "evaluate", "qc"], required=True)
     p.add_argument("--model", required=True, help="model .nz path or zoo name")
@@ -80,6 +84,105 @@ def resolve_model_path(args) -> str:
     return get_model_path(args.model, zoo)
 
 
+def cmd_train(args) -> int:
+    from .data.bids import get_bids_pairs
+    from .engine.train import TrainEngine, TrainParam
+    from .io.nifti import read_nifti
+    from .models.dsl import default_architecture
+    from .models.serialize import load_model, save_model
+    from .models.unet3d import UNet3d, round_up_size
+    from .ops.augment import AugOptions
+
+    if args.data_parallel or args.coordinator:
+        print("error: --data_parallel and --coordinator are not ported yet", file=sys.stderr)
+        return 1
+    if args.session:
+        from .config.session import load_session
+
+        sess = load_session(args.session)
+        images, labels = sess["images"], sess["labels"]
+        args.model = sess.get("model_path", args.model)
+        args.batch_size = sess.get("batch_size", args.batch_size)
+        args.learning_rate = sess.get("learning_rate", args.learning_rate)
+        args.epoch = sess.get("epoch", args.epoch)
+        args.seed = sess.get("seed", args.seed)
+        for k, v in sess.get("options", {}).items():
+            if getattr(args, k, None) is None:
+                setattr(args, k, v)
+    elif not args.bids:
+        print("error: please specify --bids", file=sys.stderr)
+        return 1
+    else:
+        images, labels = get_bids_pairs(args.bids)
+    print(f"{len(images)} matched pairs")
+
+    if args.file_list:
+        with open(args.file_list, "w") as f:
+            for i, lab in zip(images, labels):
+                f.write(f"{os.path.basename(i)}=>{os.path.basename(lab)}\n")
+
+    model_path = resolve_model_path(args)
+    if os.path.exists(model_path):
+        print(f"loading existing model {model_path}")
+        try:
+            model = load_model(model_path, device=args.device)
+        except (OSError, ValueError) as exc:  # train.cpp:1110-1111
+            print(f"error: failed to load model from {model_path}: {exc}", file=sys.stderr)
+            return 1
+    else:
+        try:
+            lbl = read_nifti(labels[0])
+            img = read_nifti(images[0])
+        except (OSError, ValueError) as exc:  # train.cpp:1119-1122
+            print(f"error: cannot load label/image file: {exc}", file=sys.stderr)
+            return 1
+        out_count = args.out_count or int(np.max(lbl.data)) + 1
+        architecture = args.architecture or default_architecture(out_count)
+        model = UNet3d.create(args.in_count, out_count, architecture, seed=0, device=args.device)
+        model.dim = round_up_size(img.shape_xyz, 32)
+        model.voxel_size = np.asarray(img.voxel_size, np.float32)
+        print(f"dim: {model.dim}")
+        print(f"vs: {tuple(float(v) for v in model.voxel_size)}")
+
+    opts = default_option_values()
+    for item in OPTION_TABLE:
+        v = getattr(args, item.id, None)
+        if v is not None:
+            opts[item.id] = v
+    seed = args.seed
+    if seed is None:
+        seed = len(model.testing_errors) // 3 // args.epoch  # train.cpp:1148
+    param = TrainParam(
+        image_file_name=images, label_file_name=labels, batch_size=args.batch_size,
+        epoch=args.epoch, learning_rate=args.learning_rate, seed=seed,
+        is_label=bool(args.is_label), cost_ce=bool(args.cost_ce),
+        cost_dice=bool(args.cost_dice), cost_mse=bool(args.cost_mse),
+        options=AugOptions.from_dict(opts), compute_dtype=args.compute_dtype,
+    )
+    if args.save_session:
+        from .config.session import save_session
+
+        save_session(args.save_session, images=images, labels=labels, model_path=model_path,
+                     batch_size=param.batch_size, learning_rate=param.learning_rate,
+                     epoch=param.epoch, is_label=param.is_label, seed=param.seed,
+                     options=opts)
+
+    engine = TrainEngine(model, param, model_path=model_path, device=args.device)
+    engine.start()
+    if engine.error_msg:
+        print(f"error: {engine.error_msg}", file=sys.stderr)
+        return 1
+    print(f"starting epoch: {engine.cur_epoch}")
+    engine.run()
+    if engine.error_msg:
+        print(f"error: {engine.error_msg}", file=sys.stderr)
+        return 1
+    final = model_path + ".final.nz"
+    print(f"save model to {final}")
+    save_model(final, model)
+    return 0
+
+
 def cmd_evaluate(args) -> int:
     import torch
 
@@ -124,8 +227,8 @@ def cmd_evaluate(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.action != "evaluate":
-        print(f"error: --action {args.action} is not ported yet", file=sys.stderr)
+    if args.action == "qc":
+        print("error: --action qc is not ported yet", file=sys.stderr)
         return 1
     # boot-time accelerator probe + self-test (check_cuda, main.cpp:93-102);
     # raises when --device asks for a card that is not there
@@ -134,6 +237,8 @@ def main(argv=None) -> int:
     err = check_cuda(args.device)
     if err:
         print(f"warning: {err}", file=sys.stderr)
+    if args.action == "train":
+        return cmd_train(args)
     return cmd_evaluate(args)
 
 

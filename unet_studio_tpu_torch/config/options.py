@@ -90,3 +90,7 @@ OPTION_TABLE: tuple[OptionItem, ...] = (
     _flt("Background", "└Magnitude", "perlin_texture_mag", 0, 1, 0.1, 2, 0.5,
          "The magnitude of background images"),
 )
+
+
+def default_option_values() -> dict[str, float]:
+    return {o.id: o.default for o in OPTION_TABLE}

@@ -130,6 +130,22 @@ def from_jax_opt_state(spec: UNetSpec, opt_state: dict) -> dict:
     return {"momentum": momentum, "step": int(np.asarray(opt_state["step"]))}
 
 
+def to_jax_opt_state(spec: UNetSpec, opt_state: dict) -> dict:
+    """The port's SGD state -> the JAX package's (numpy momentum buffers
+    in its layouts, DHWIO convs and (Ci,2,2,2,Co) conv_trans, keyed like
+    its parameters; the step as an int64 scalar): the inverse of
+    ``from_jax_opt_state``, the ``.opt`` file both packages read."""
+    momentum = {}
+    for name, layer, which in param_order(spec):
+        arr = opt_state["momentum"][name].detach().float().cpu().numpy()
+        if which == "w" and layer.kind == "conv":
+            arr = arr.transpose(2, 3, 4, 1, 0)
+        elif which == "w" and layer.kind == "conv_trans":
+            arr = arr.transpose(0, 2, 3, 4, 1)
+        momentum[name] = np.ascontiguousarray(arr)
+    return {"momentum": momentum, "step": np.asarray(int(opt_state["step"]), np.int64)}
+
+
 def get_model_path(model_arg: str, zoo_dir: str | None = None) -> str:
     """--model resolution: append .nz, fall back to the zoo dir
     (train.cpp:1044-1052)."""

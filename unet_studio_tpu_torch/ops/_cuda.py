@@ -26,11 +26,14 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("conv.cu", "conv_bwd.cu", "reduce.cu")
+SOURCES = ("conv.cu", "conv_bwd.cu", "reduce.cu", "warp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+# the warp equals its twin's order of f32 operations only without
+# contraction of a * b + c into one rounding
+SOURCE_FLAGS = {"warp.cu": ("-fmad=false",)}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {None: 0, "relu": 1, "leaky_relu": 2}
@@ -45,8 +48,10 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _I, _P],
     # x, pa, pb, act, ci, w, bias, y, D, H, W, co, dtype, stream
     "unet_trans2x": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, n_vox, c, out, dtype, stream
-    "unet_channel_sum_sq": [_P, _L, _I, _P, _I, _P],
+    # x, mean, n_vox, c, mode, out, dtype, stream
+    "unet_channel_moments": [_P, _P, _L, _I, _I, _P, _I, _P],
+    # x, n, out, dtype, stream
+    "unet_volume_max": [_P, _L, _P, _I, _P],
     # g, x, mean, inv, n_vox, c, out, dtype, stream
     "unet_channel_norm_bwd": [_P, _P, _P, _P, _L, _I, _P, _I, _P],
     # a, AD, AH, AW, ca, b, BD, BH, BW, cb, ks, stride, pad, part, nblk, out,
@@ -56,6 +61,9 @@ _SIGNATURES = {
     # g, co, w, dx, D, H, W, ci, dtype, stream
     "unet_conv3_s2_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "unet_trans2x_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # src, sd, sh, sw, coords, od, oh, ow, peak, out_img, out_lab, mode,
+    # window, stream
+    "unet_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -75,6 +83,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -90,7 +99,8 @@ def _build(target: Path) -> None:
             obj = Path(tmp) / (src + ".o")
             objs.append(str(obj))
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), "-c", str(CSRC / src), "-o",
+                 str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
         errors = []

@@ -1,9 +1,14 @@
-"""K2: per-channel reductions of a channels-last volume, with their plain
-PyTorch twins.  Two modes of the JAX package's lane reduction
-(unet_studio_tpu/ops/packed.py ``_lane_reduce_kernel``): ``sum_sq``
-(``lane_sum_sq``), the instance norm's statistics, and ``norm_bwd``
-(``norm_bwd_sums``), the two sums of its backward.  Its ``max`` mode
-comes with the augmentation.
+"""K2: the reductions of the JAX package's lane-reduce kernel
+(unet_studio_tpu/ops/packed.py ``_lane_reduce_kernel``), in all of its
+modes, with their plain PyTorch twins:
+
+- per channel of a channels-last volume: ``sum_sq`` (``lane_sum_sq``),
+  the instance norm's statistics, and the two modes the JAX package
+  defines but never calls, ``sum`` (``lane_sum``) and ``sqdiff``
+  (``lane_sqdiff``);
+- ``norm_bwd`` (``norm_bwd_sums``), the two sums of the norm's backward;
+- ``max`` (``lane_max``) over a whole volume of any shape: the peak that
+  scales the augmentation's packed image + label warp.
 
 Each wrapper runs its twin when the tensor lies on the CPU and launches
 the CUDA kernel (``csrc/reduce.cu``) when it lies on a card, where it
@@ -32,17 +37,54 @@ def norm_bwd_sums_plain(g, x, mean, inv) -> torch.Tensor:
     return torch.stack([gf.sum(0), (gf * (xf - mean.float()) * inv.float()).sum(0)])
 
 
-def _check_volume(x: torch.Tensor, name: str) -> int:
+def channel_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """(C,) f32: per-channel sum over all voxels."""
+    return x.reshape(-1, x.shape[-1]).float().sum(0)
+
+
+def channel_sqdiff_plain(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """(C,) f32: per-channel sum of (x - mean)^2, ``mean`` rounded to x's
+    dtype first as the TPU kernel takes it."""
+    m = mean.to(device=x.device, dtype=x.dtype).float()
+    return (x.reshape(-1, x.shape[-1]).float() - m).square().sum(0)
+
+
+def volume_max_plain(x: torch.Tensor) -> torch.Tensor:
+    """0-d f32: max(0, max(x)), the TPU kernel's zero-initialised max."""
+    return x.float().max().clamp_min(0.0)
+
+
+def _check_dense(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {x.device}, expected cuda or cpu")
     if x.dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f"{name}: dtype {x.dtype} not in (float32, bfloat16)")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: input must be contiguous and 16-byte aligned")
+
+
+def _check_volume(x: torch.Tensor, name: str) -> int:
+    _check_dense(x, name)
     c = x.shape[-1]
     if c & (c - 1) or not 8 <= c <= 1024:
         raise ValueError(f"{name}: C={c} must be a power of two in [8, 1024]")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"{name}: input must be contiguous and 16-byte aligned")
     return c
+
+
+# moments modes of csrc/reduce.cu (rows of the output)
+_SUM, _SUM_SQ, _SQDIFF = 0, 1, 2
+
+
+def _moments(x: torch.Tensor, mode: int, mean: torch.Tensor | None, name: str) -> torch.Tensor:
+    c = _check_volume(x, name)
+    out = torch.zeros((2 if mode == _SUM_SQ else 1, c), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _cuda.lib().unet_channel_moments(
+            x.data_ptr(), _cuda.ptr(mean), x.numel() // c, c, mode, out.data_ptr(),
+            _cuda.DTYPE_CODES[x.dtype], _cuda.stream_ptr(x),
+        )
+    _cuda.check(rc, name)
+    return out
 
 
 def channel_sum_sq(x: torch.Tensor) -> torch.Tensor:
@@ -50,15 +92,49 @@ def channel_sum_sq(x: torch.Tensor) -> torch.Tensor:
     (..., C) channels-last tensor, in one read."""
     if x.device.type == "cpu":
         return channel_sum_sq_plain(x)
-    c = _check_volume(x, "channel_sum_sq")
-    out = torch.zeros((2, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _cuda.lib().unet_channel_sum_sq(
-            x.data_ptr(), x.numel() // c, c, out.data_ptr(),
-            _cuda.DTYPE_CODES[x.dtype], _cuda.stream_ptr(x),
-        )
-    _cuda.check(rc, "channel_sum_sq")
+    out = _moments(x, _SUM_SQ, None, "channel_sum_sq")
     channel_sum_sq.launches += 1
+    return out
+
+
+def channel_sum(x: torch.Tensor) -> torch.Tensor:
+    """K2 ``sum``: (C,) f32 per-channel sum of a (..., C) channels-last
+    tensor."""
+    if x.device.type == "cpu":
+        return channel_sum_plain(x)
+    out = _moments(x, _SUM, None, "channel_sum")[0]
+    channel_sum.launches += 1
+    return out
+
+
+def channel_sqdiff(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """K2 ``sqdiff``: (C,) f32 per-channel sum of (x - mean)^2 of a
+    (..., C) channels-last tensor and a (C,) ``mean``, which is rounded to
+    x's dtype first, as the TPU kernel takes it."""
+    if x.device.type == "cpu":
+        return channel_sqdiff_plain(x, mean)
+    c = x.shape[-1]
+    if mean.shape != (c,):
+        raise ValueError(f"channel_sqdiff: mean must be ({c},)")
+    m = mean.to(device=x.device, dtype=x.dtype).float().contiguous()
+    out = _moments(x, _SQDIFF, m, "channel_sqdiff")[0]
+    channel_sqdiff.launches += 1
+    return out
+
+
+def volume_max(x: torch.Tensor) -> torch.Tensor:
+    """K2 ``max``: 0-d f32 max(0, max(x)) over a whole volume of any shape
+    (the TPU kernel's zero-initialised accumulator: an all-negative volume
+    gives 0)."""
+    if x.device.type == "cpu":
+        return volume_max_plain(x)
+    _check_dense(x, "volume_max")
+    out = torch.zeros((), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _cuda.lib().unet_volume_max(x.data_ptr(), x.numel(), out.data_ptr(),
+                                         _cuda.DTYPE_CODES[x.dtype], _cuda.stream_ptr(x))
+    _cuda.check(rc, "volume_max")
+    volume_max.launches += 1
     return out
 
 
@@ -89,6 +165,6 @@ def norm_bwd_sums(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     return out
 
 
-WRAPPERS = (channel_sum_sq, norm_bwd_sums)
+WRAPPERS = (channel_sum_sq, channel_sum, channel_sqdiff, norm_bwd_sums, volume_max)
 for _fn in WRAPPERS:
     _fn.launches = 0
