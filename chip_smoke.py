@@ -3,11 +3,15 @@
 GPU and check it, phase by phase.  Any failed phase exits non-zero.
 
 1. Device, ``nvidia-smi`` name and power limit, and the kernels' build
-   from ``unet_studio_tpu_torch/csrc`` (nvcc, sm_90a).
+   from ``unet_studio_tpu_torch/csrc`` (nvcc, sm_90a), with ptxas's
+   registers, shared memory and spills of the tensor-core kernels.
 2. Each kernel wrapper against its plain PyTorch twin on the card at the
    flagship U-Net's shapes (``default_architecture(3)`` on the 192x224x192
    grid), in bf16 and in f32, with its time, the twin's, one PyTorch
-   library call's and the least time the card could take.
+   library call's and the least time the card could take.  bf16 K1 runs
+   on the tensor cores (``csrc/conv_tc.cu``); its uses are also timed at
+   every kernel level (``tc_ms_c*``) and in f32 on the FMA kernels
+   (``f32_fma_ms``).
 3. The full-width forward through the kernels against the all-twin
    forward and the plain unfused forward (f32), and in bf16; its time,
    and its device time by kernel from ``torch.profiler``.
@@ -19,14 +23,15 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    share of ``infer``.
 5. Each backward kernel (K1 as dx, K5-K9, K2 ``norm_bwd``) against its
    twin at the flagship shapes, in bf16 and in f32, with its times and
-   bound as in phase 2.
+   bound as in phase 2 (K1 dx and K7 in bf16 on the tensor cores).
 6. The train step (``build_train_step``) at full width on two items it
    synthesizes from synthetic phantoms (contrast simulation and the
    default augmentation, with rubber stamps): every gradient of an f32
    step through the kernels against the same step through the twins, on
    the same draws; the bf16 step against the f32 one; three bf16 steps
    with the loss falling; each kernel's launches in one step (counts set
-   to 0 just before it), the step's synthesis / forward / backward /
+   to 0 just before it; every bf16 K1 and K7 launch on the tensor cores,
+   ``tc_launches``), the step's synthesis / forward / backward /
    optimizer split, its device busy share and top kernels, and its peak
    memory.
 7. The augmentation's kernels against their twins at the flagship grid:
@@ -260,18 +265,23 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
             e = rel_err(dx, K.conv3_plain([g], [None], K.flip_transpose(w), zero, 1))
             require(e < tol, f"conv3x3x3_dx C={c} {tag}: err {e}")
             errs[f"{tag}_rel_c{c}"] = e
+            if dtype == torch.bfloat16:
+                errs[f"tc_ms_c{c}"] = timed_ms(lambda: K.conv3x3x3_dx(g, w))
             if c == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(dx, K.conv3_plain([g], [None], K.flip_transpose(w),
                                                              zero, 1))
                 ms = timed_ms(lambda: K.conv3x3x3_dx(g, w))
+                g32 = g.float()
+                fma = {"f32_fma_ms": timed_ms(lambda: K.conv3x3x3_dx(g32, w))}
+                del g32
                 plain_ms = timed_ms(lambda: K.conv3_plain([g], [None], K.flip_transpose(w),
                                                           zero, 1))
                 lib_ms = timed_ms(lib_bwd(g, g, w.to(dtype), 1, 1, False, [True, False, False]))
                 timing = (ms, plain_ms, lib_ms, 4 * c * nvox(dims), 2 * 27 * c * c * nvox(dims))
             del g, dx
-    record("conv3x3x3_dx", "unet_studio_tpu_torch/csrc/conv.cu",
+    record("conv3x3x3_dx", "unet_studio_tpu_torch/csrc/conv_tc.cu",
            "unet_studio_tpu/ops/pallas_conv.py:766", K.conv3x3x3_dx, errs, *timing,
-           BF16_TENSOR_FLOPS)
+           BF16_TENSOR_FLOPS, fma)
 
     def dw_phase(name, wrapper, plain_fn, cases, replaces, lib_call, nbytes, ops):
         """dW kernel vs twin on each (A dims, CA, B dims, CB) case; the
@@ -335,9 +345,14 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
             e = rel_err(dx, ref)
             require(e < tol and dx.shape == (*dims, c), f"conv3x3x3_s2_dx C={c} {tag}: err {e}")
             errs[f"{tag}_rel_c{c}"] = e
+            if dtype == torch.bfloat16:
+                errs[f"tc_ms_c{c}"] = timed_ms(lambda: K.conv3x3x3_s2_dx(g, w))
             if c == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(dx, ref)
                 ms = timed_ms(lambda: K.conv3x3x3_s2_dx(g, w))
+                g32 = g.float()
+                fma = {"f32_fma_ms": timed_ms(lambda: K.conv3x3x3_s2_dx(g32, w))}
+                del g32
                 plain_ms = timed_ms(lambda: K.conv3_s2_dx_plain(g, w))
                 x = torch.empty((*dims, c), device=g.device, dtype=dtype)
                 lib_ms = timed_ms(lib_bwd(g, x, w.to(dtype), 2, 1, False, [True, False, False]))
@@ -345,8 +360,9 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
                           2 * 27 * c * 2 * c * nvox(half))
                 del x
             del g, dx, ref
-    record("conv3x3x3_s2_dx", bwd_src, "unet_studio_tpu/ops/packed.py:1008",
-           K.conv3x3x3_s2_dx, errs, *timing, BF16_TENSOR_FLOPS)
+    record("conv3x3x3_s2_dx", "unet_studio_tpu_torch/csrc/conv_tc.cu",
+           "unet_studio_tpu/ops/packed.py:1008", K.conv3x3x3_s2_dx, errs, *timing,
+           BF16_TENSOR_FLOPS, fma)
 
     # K8: the transposed conv's dx, g at level l (C) -> dx at level l+1 (2C)
     errs = {}
@@ -426,6 +442,7 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     from unet_studio_tpu_torch.engine.optimizer import init_opt_state
     from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step
     from unet_studio_tpu_torch.models import unet3d as U
+    from unet_studio_tpu_torch.ops import conv as K
     from unet_studio_tpu_torch.ops.augment import AugOptions
 
     model = U.UNet3d.create(1, 3, arch, seed=0, device=dev)
@@ -467,6 +484,7 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     opt_state = init_opt_state(model.params())
     for _, w in records.values():
         w.launches = 0
+        w.tc_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     split = {}
@@ -477,11 +495,18 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     split["step_s"] = time.perf_counter() - t
     for rec, w in records.values():
         rec["launches"] = w.launches
+        if w in K.TC_WRAPPERS:
+            rec["tc_launches"] = w.tc_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     per_item = {k: r["launches"] / images.shape[0] for k, (r, _) in records.items()}
     log("launches per train-step item: " + json.dumps(per_item))
     require(all(r["launches"] > 0 for k, (r, _) in records.items() if k not in OFF_PATH),
             "a kernel of the train step was not launched")
+    tc = {k: r["tc_launches"] for k, (r, w) in records.items() if w in K.TC_WRAPPERS}
+    log("tensor-core launches in the bf16 step: " + json.dumps(tc))
+    require(all(v > 0 for v in tc.values())
+            and all(tc[k] == records[k][0]["launches"] for k in tc),
+            "a bf16 K1 or K7 launch of the train step missed the tensor cores")
     losses = [float(loss1)]
     step_profile = {}
 
@@ -490,7 +515,7 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
         opt_state, _, loss = step16(opt_state, images, labels, None, 1e-2, seeds=seeds)
         losses.append(float(loss))
 
-    step_profile = profile_forward(second, top=15, grad=True)
+    step_profile = profile_forward(second, top=30, grad=True)
     torch.cuda.synchronize()
     t = time.perf_counter()
     opt_state, _, loss3 = step16(opt_state, images, labels, None, 1e-2, seeds=seeds)
@@ -808,6 +833,8 @@ def main() -> int:
     _cuda.lib()
     log(f"kernels built/loaded in {time.perf_counter() - t:.1f}s "
         f"(nvcc seconds: {_cuda.last_build_seconds})")
+    # registers, shared memory and spills of the tensor-core kernels
+    print(json.dumps({"ptxas": _cuda.ptxas_report()}), flush=True)
 
     # ---- 2. kernels vs twins at the flagship shapes -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -832,21 +859,25 @@ def main() -> int:
     records = {}
 
     def record(name, route_src, replaces, wrapper, errs, ms, plain_ms, library_ms, nbytes, ops,
-               peak):
+               peak, extra=None):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         rec = {
             "name": name, "route": "cuda", "source": route_src, "replaces": replaces,
             "launches": None, "max_abs_err": errs.get("max_abs", errs.get("bf16_abs")), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            "library_ms": library_ms, **(extra or {}),
         }
         records[name] = (rec, wrapper)
-        print(json.dumps({"kernel": name, **errs, "kernel_ms": ms, "plain_ms": plain_ms,
+        print(json.dumps({"kernel": name, **errs, **(extra or {}), "kernel_ms": ms,
+                          "plain_ms": plain_ms,
                           "library_ms": library_ms, "bound_ms": rec["bound_ms"],
                           "bound_by": rec["bound_by"]}), flush=True)
 
     conv_src = "unet_studio_tpu_torch/csrc/conv.cu"
+    # bf16 K1 and K7 run on the tensor cores; ``f32_fma_ms`` times the f32
+    # call of the same shapes on the FMA kernels beside them
+    tc_src = "unet_studio_tpu_torch/csrc/conv_tc.cu"
 
     # K1, C -> C
     errs = {}
@@ -858,20 +889,27 @@ def main() -> int:
             e, es = rel_err(y, yr), stats_err(st, sr, nvox(dims))
             require(e < tol and es < STATS_TOL, f"conv3x3x3_s1 C={c} {tag}: err {e} stats {es}")
             errs[f"{tag}_rel_c{c}"] = e
+            if dtype == torch.bfloat16:
+                errs[f"tc_ms_c{c}"] = timed_ms(
+                    lambda: K.conv3x3x3_s1(x, w, b, prologue=p, want_stats=True))
             if c == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(y, yr)
                 y0 = K.conv3x3x3_s1(x, w, b)  # without prologue and stats
                 require(rel_err(y0, K.conv3_plain([x], [None], w, b, 1)) < tol,
                         "conv3x3x3_s1 without prologue")
                 ms = timed_ms(lambda: K.conv3x3x3_s1(x, w, b, prologue=p, want_stats=True))
+                x32 = x.float()
+                fma = {"f32_fma_ms": timed_ms(
+                    lambda: K.conv3x3x3_s1(x32, w, b, prologue=p, want_stats=True))}
+                del x32
                 plain_ms = timed_ms(lambda: K.conv3_plain([x], [p], w, b, 1, want_stats=True))
                 xl, wl = K.ncdhw(x), w.to(dtype)
                 lib_ms = timed_ms(lambda: torch.nn.functional.conv3d(xl, wl, b.to(dtype),
                                                                      padding=1))
                 timing = (ms, plain_ms, lib_ms, 4 * c * nvox(dims), 2 * 27 * c * c * nvox(dims))
             del x, y, yr
-    record("conv3x3x3_s1", conv_src, "unet_studio_tpu/ops/pallas_conv.py:355",
-           K.conv3x3x3_s1, errs, *timing, BF16_TENSOR_FLOPS)
+    record("conv3x3x3_s1", tc_src, "unet_studio_tpu/ops/pallas_conv.py:355",
+           K.conv3x3x3_s1, errs, *timing, BF16_TENSOR_FLOPS, fma)
 
     # K1, 1 -> 16 entry conv
     errs = {}
@@ -885,14 +923,17 @@ def main() -> int:
         if dtype == torch.bfloat16:
             errs["bf16_abs"] = abs_err(y, yr)
             ms = timed_ms(lambda: K.conv3x3x3_entry(x, w, b, want_stats=True))
+            x32 = x.float()
+            fma = {"f32_fma_ms": timed_ms(lambda: K.conv3x3x3_entry(x32, w, b, want_stats=True))}
+            del x32
             plain_ms = timed_ms(lambda: K.conv3_plain([x], [None], w, b, 1, want_stats=True))
             xl = K.ncdhw(x)
             lib_ms = timed_ms(lambda: torch.nn.functional.conv3d(xl, w.to(dtype), b.to(dtype),
                                                                  padding=1))
             timing = (ms, plain_ms, lib_ms, (1 + 16) * 2 * nvox(S0), 2 * 27 * 16 * nvox(S0))
         del x, y, yr
-    record("conv3x3x3_entry", conv_src, "unet_studio_tpu/ops/packed.py:736",
-           K.conv3x3x3_entry, errs, *timing, BF16_TENSOR_FLOPS)
+    record("conv3x3x3_entry", tc_src, "unet_studio_tpu/ops/packed.py:736",
+           K.conv3x3x3_entry, errs, *timing, BF16_TENSOR_FLOPS, fma)
 
     # K1, 2C -> C decoder entry (skip, up)
     errs = {}
@@ -904,9 +945,16 @@ def main() -> int:
             e = rel_err(y, yr)
             require(e < tol, f"conv3x3x3_dual C={c} {tag}: err {e}")
             errs[f"{tag}_rel_c{c}"] = e
+            if dtype == torch.bfloat16:
+                errs[f"tc_ms_c{c}"] = timed_ms(
+                    lambda: K.conv3x3x3_dual(xa, xb, w, b, prologue_a=pa, prologue_b=pb))
             if c == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(y, yr)
                 ms = timed_ms(lambda: K.conv3x3x3_dual(xa, xb, w, b, prologue_a=pa, prologue_b=pb))
+                xa32, xb32 = xa.float(), xb.float()
+                fma = {"f32_fma_ms": timed_ms(lambda: K.conv3x3x3_dual(
+                    xa32, xb32, w, b, prologue_a=pa, prologue_b=pb))}
+                del xa32, xb32
                 plain_ms = timed_ms(lambda: K.conv3_plain([xa, xb], [pa, pb], w, b, 1))
                 # library yardstick: one cuDNN conv of the concatenation
                 # (the concatenation itself is not timed)
@@ -917,8 +965,8 @@ def main() -> int:
                 timing = (ms, plain_ms, lib_ms, 6 * c * nvox(dims),
                           2 * 27 * 2 * c * c * nvox(dims))
             del xa, xb, y, yr
-    record("conv3x3x3_dual", conv_src, "unet_studio_tpu/ops/pallas_conv.py:355",
-           K.conv3x3x3_dual, errs, *timing, BF16_TENSOR_FLOPS)
+    record("conv3x3x3_dual", tc_src, "unet_studio_tpu/ops/pallas_conv.py:355",
+           K.conv3x3x3_dual, errs, *timing, BF16_TENSOR_FLOPS, fma)
 
     # K3, C -> 2C stride 2 (64 -> 128 included)
     errs = {}
@@ -1063,6 +1111,7 @@ def main() -> int:
     synthetic_volume(src, 3)
     for rec, wrapper in records.values():
         wrapper.launches = 0
+        wrapper.tc_launches = 0
     t = time.perf_counter()
     rc = cli.main(["--action", "evaluate", "--model", model_path, "--source", src,
                    "--device", "cuda", "--compute_dtype", "bfloat16"])
@@ -1071,10 +1120,14 @@ def main() -> int:
     require(rc == 0, f"cli evaluate returned {rc}")
     for rec, wrapper in records.values():
         rec["launches_evaluate"] = wrapper.launches
+        if wrapper in K.TC_WRAPPERS:
+            rec["tc_launches_evaluate"] = wrapper.tc_launches
     log("launches in the evaluate run: "
         + json.dumps({k: r["launches_evaluate"] for k, (r, _) in records.items()}))
     require(all(r["launches_evaluate"] > 0 for r, _ in records.values()),
             "a kernel of the evaluate path was not launched")
+    require(all(r["tc_launches_evaluate"] == r["launches_evaluate"] for r, w in records.values()
+                if w in K.TC_WRAPPERS), "a bf16 K1 of the evaluate path left the tensor cores")
     out = read_nifti(src + ".result.nii.gz")
     require(out.data.shape == native, f"result shape {out.data.shape}")
     labels = set(np.unique(out.data).tolist())

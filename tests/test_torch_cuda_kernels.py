@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1-K12, all of K2's modes) against their plain
-PyTorch twins on the card, at small shapes with odd sizes.  These tests need an NVIDIA
+PyTorch twins on the card, at small shapes with odd sizes; bf16 K1 and K7
+run on the tensor-core route (``test_tc_*`` add whole-tile shapes).  These tests need an NVIDIA
 GPU and skip without one; run them there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -241,6 +242,94 @@ def test_functions_on_the_card(dev, dtype, kind):
         if a.requires_grad:
             assert a.grad.dtype == b.grad.dtype
             assert _rel(a.grad, b.grad) < tol
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("act", [None, "relu", "leaky_relu"])
+@pytest.mark.parametrize("dims", [(5, 10, 14), (4, 16, 32)])
+def test_tc_s1(dev, c, act, dims):
+    """bf16 K1 C->C on the tensor-core route, ragged and whole tiles, with
+    and without the prologue and the stats."""
+    rng = np.random.default_rng(c + len(act or ""))
+    x = _t(rng, (*dims, c), dev, torch.bfloat16)
+    w, b = _t(rng, (c, c, 3, 3, 3), dev, scale=0.1), _t(rng, c, dev)
+    pro = None if act is None else _pro(rng, c, dev, act)
+    n0 = K.conv3x3x3_s1.tc_launches
+    y, st = K.conv3x3x3_s1(x, w, b, prologue=pro, want_stats=True)
+    yr, sr = K.conv3_plain([x], [pro], w, b, 1, want_stats=True)
+    assert _rel(y, yr) < BF16_TOL and _rel(st, sr) < 1e-4
+    y = K.conv3x3x3_s1(x, w, b, prologue=pro)
+    assert _rel(y, yr) < BF16_TOL
+    assert K.conv3x3x3_s1.tc_launches == n0 + 2
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("dims", [(3, 5, 7), (2, 8, 16)])
+def test_tc_dual_and_dx(dev, c, dims):
+    """bf16 K1 2C->C (a prologue on one input, none on the other) and K1
+    as dx on g with flipped, transposed weights, on the tensor cores."""
+    rng = np.random.default_rng(c + 5)
+    xa, xb = (_t(rng, (*dims, c), dev, torch.bfloat16) for _ in range(2))
+    w, b = _t(rng, (c, 2 * c, 3, 3, 3), dev, scale=0.1), _t(rng, c, dev)
+    pro = _pro(rng, c, dev, "leaky_relu")
+    n_dual, n_dx = K.conv3x3x3_dual.tc_launches, K.conv3x3x3_dx.tc_launches
+    y = K.conv3x3x3_dual(xa, xb, w, b, prologue_a=pro)
+    assert _rel(y, K.conv3_plain([xa, xb], [pro, None], w, b, 1)) < BF16_TOL
+    ws = w[:, :c]
+    dx = K.conv3x3x3_dx(xa, ws)
+    ref = K.conv3_plain([xa], [None], K.flip_transpose(ws), torch.zeros(c, device=dev), 1)
+    assert _rel(dx, ref) < BF16_TOL
+    assert (K.conv3x3x3_dual.tc_launches, K.conv3x3x3_dx.tc_launches) == (n_dual + 1, n_dx + 1)
+
+
+@pytest.mark.parametrize("co", [16, 32, 64])
+@pytest.mark.parametrize("dims", [(7, 9, 11), (4, 16, 32)])
+def test_tc_entry(dev, co, dims):
+    rng = np.random.default_rng(co)
+    x = _t(rng, (*dims, 1), dev, torch.bfloat16)
+    w, b = _t(rng, (co, 1, 3, 3, 3), dev, scale=0.3), _t(rng, co, dev)
+    n0 = K.conv3x3x3_entry.tc_launches
+    y, st = K.conv3x3x3_entry(x, w, b, want_stats=True)
+    yr, sr = K.conv3_plain([x], [None], w, b, 1, want_stats=True)
+    assert _rel(y, yr) < BF16_TOL and _rel(st, sr) < 1e-4
+    assert K.conv3x3x3_entry.tc_launches == n0 + 1
+
+
+@pytest.mark.parametrize("ci,co", [(16, 32), (32, 64), (64, 128)])
+@pytest.mark.parametrize("half", [(3, 5, 7), (1, 4, 16), (2, 6, 17)])
+def test_tc_s2_dx(dev, ci, co, half):
+    """bf16 K7 on the tensor cores: odd and whole-tile g grids; the odd dx
+    voxels at the high end read g past its end as 0."""
+    rng = np.random.default_rng(ci + sum(half))
+    g, w = _t(rng, (*half, co), dev, torch.bfloat16), _t(rng, (co, ci, 3, 3, 3), dev, scale=0.1)
+    n0 = K.conv3x3x3_s2_dx.tc_launches
+    got, ref = K.conv3x3x3_s2_dx(g, w), K.conv3_s2_dx_plain(g, w)
+    assert got.shape == (2 * half[0], 2 * half[1], 2 * half[2], ci)
+    assert _rel(got, ref) < BF16_TOL
+    # the last odd plane along each axis (dx = 2 OD - 1) alone
+    assert _rel(got[-1], ref[-1]) < BF16_TOL and _rel(got[:, :, -1], ref[:, :, -1]) < BF16_TOL
+    assert K.conv3x3x3_s2_dx.tc_launches == n0 + 1
+
+
+def test_tc_rejects(dev):
+    """bf16 tensors the tensor-core route has no kernel for raise; f32 of
+    the same shapes keeps the FMA route."""
+    bf = torch.bfloat16
+    x = torch.zeros((4, 4, 4, 16), device=dev, dtype=bf)
+    with pytest.raises(ValueError):
+        K.conv3x3x3_s1(x, torch.zeros(32, 16, 3, 3, 3, device=dev), torch.zeros(32, device=dev))
+    with pytest.raises(ValueError):
+        K.conv3x3x3_s1(torch.zeros((4, 4, 4, 128), device=dev, dtype=bf),
+                       torch.zeros(128, 128, 3, 3, 3, device=dev), torch.zeros(128, device=dev))
+    with pytest.raises(ValueError):
+        K.conv3x3x3_entry(x[..., :1].contiguous(), torch.zeros(48, 1, 3, 3, 3, device=dev),
+                          torch.zeros(48, device=dev))
+    with pytest.raises(ValueError):
+        K.conv3x3x3_s2_dx(torch.zeros((2, 2, 2, 16), device=dev, dtype=bf),
+                          torch.zeros(16, 16, 3, 3, 3, device=dev))
+    n0 = K.conv3x3x3_s1.tc_launches
+    K.conv3x3x3_s1(x.float(), torch.zeros(32, 16, 3, 3, 3, device=dev), torch.zeros(32, device=dev))
+    assert K.conv3x3x3_s1.tc_launches == n0
 
 
 def test_backward_rejects(dev):

@@ -30,13 +30,14 @@
 // 114 GFLOP: 0.16 ms at 3.35 TB/s against 0.12 ms at the bf16 tensor-core
 // peak.  K3 16->32 there moves 330 MB (0.10 ms); K4 32->16 into level 0
 // moves 330 MB for 8.5 GFLOP (0.10 ms).
-// This first version runs on the CUDA cores in f32 FMA (no wgmma), whose
-// 67 TFLOP/s put level-0 K1 at 1.7 ms at best: one output voxel and 16
-// output channels per thread, the weights of a 16-channel input chunk
-// staged in shared memory and read as broadcasts, each voxel's channel
-// run read with 16-byte loads.  It is right first; an implicit-GEMM
-// tensor-core version (wgmma on TMA-fed shared-memory tiles) is later
-// work.
+// These kernels run on the CUDA cores in f32 FMA, whose 67 TFLOP/s put
+// level-0 K1 at 1.7 ms at best: one output voxel and 16 output channels
+// per thread, the weights of a 16-channel input chunk staged in shared
+// memory and read as broadcasts, each voxel's channel run read with
+// 16-byte loads.  They serve f32, where the tensor cores would mean TF32,
+// and bf16 K3 and K4; bf16 K1 runs on the tensor cores (conv_tc.cu).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -220,10 +221,13 @@ static void launch_conv3(const void* xa, const void* pa_a, const void* pb_a, int
       (const T*)xa, (const float*)pa_a, (const float*)pb_a, act_a, (const T*)xb,          \
       (const float*)pa_b, (const float*)pb_b, act_b, ci, (const T*)w, (const float*)bias, \
       (T*)y, (float*)stats, D, H, W, co)
-  if (stride == 1)
-    CONV3_LAUNCH(1);
-  else
-    CONV3_LAUNCH(2);
+  if constexpr (std::is_same<T, float>::value) {
+    if (stride == 1) {
+      CONV3_LAUNCH(1);
+      return;
+    }
+  }
+  CONV3_LAUNCH(2);
 #undef CONV3_LAUNCH
 }
 
@@ -231,12 +235,14 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success).  The
 // Python wrapper (ops/conv.py) has checked dtype, shape, contiguity,
-// alignment and that co is a multiple of 16.
+// alignment and that co is a multiple of 16.  bf16 at stride 1 is
+// conv_tc.cu's.
 int unet_conv3(const void* xa, const void* pa_a, const void* pb_a, int act_a, const void* xb,
                const void* pa_b, const void* pb_b, int act_b, int ci, const void* w,
                const void* bias, void* y, void* stats, int D, int H, int W, int co, int stride,
                int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype != DT_F32 && stride == 1) return (int)cudaErrorInvalidValue;
   if (dtype == DT_F32)
     launch_conv3<float>(xa, pa_a, pb_a, act_a, xb, pa_b, pb_b, act_b, ci, w, bias, y, stats, D,
                         H, W, co, stride, s);

@@ -29,8 +29,8 @@
 //    when A has one channel, the entry conv) and reads both operands as
 //    16-byte broadcasts: 16 FMA per two shared loads.
 // conv3_s2_dx_kernel (K7, replaces unet_studio_tpu/ops/packed.py:1008
-//    _s2_dx_kernel): the input gradient of the 3^3/stride-2/pad-1 conv in
-//    gather form.  Per axis a dx voxel i = 2q + r reads tap 1 of g[q] when
+//    _s2_dx_kernel, in f32; bf16 runs on the tensor cores, conv_tc.cu):
+//    the input gradient of the 3^3/stride-2/pad-1 conv in gather form.  Per axis a dx voxel i = 2q + r reads tap 1 of g[q] when
 //    r = 0, and tap 2 of g[q] and tap 0 of g[q+1] when r = 1: 1 to 8 g
 //    voxels, no scatter and no atomics (the parity decomposition of
 //    unet_studio_tpu/models/unet3d.py:288-329).  Threads of a row are
@@ -47,9 +47,10 @@
 // and (96,112,96,32): K5 16->16 moves 528 MB for 114 GFLOP, 0.158 ms at
 // 3.35 TB/s against 0.115 ms at the bf16 tensor-core peak, so bytes bound
 // it; K6, K7, K8 and K9 at 16<->32 each move 330 MB (0.099 ms) for 28.5
-// GFLOP (K6, K7) or 8.5 GFLOP (K8, K9): bytes bound them too.  This first
-// version runs on the CUDA cores in f32 FMA (no wgmma, no TMA), whose 67
-// TFLOP/s put K5 at 1.7 ms at best; a tensor-core version is later work.
+// GFLOP (K6, K7) or 8.5 GFLOP (K8, K9): bytes bound them too.  These run
+// on the CUDA cores in f32 FMA (no wgmma, no TMA), whose 67 TFLOP/s put
+// K5 at 1.7 ms at best; a tensor-core version of K5, K6, K8 and K9 is
+// later work (bf16 K7 has one, conv_tc.cu).
 
 #include "common.cuh"
 
@@ -332,18 +333,15 @@ int unet_conv_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, i
   return (int)cudaGetLastError();
 }
 
-// g: (D/2, H/2, W/2, co), w: (27, co, ci), dx: (D, H, W, ci)
+// f32 only (bf16 is conv_tc.cu's): g (D/2, H/2, W/2, co), w (27, co, ci),
+// dx (D, H, W, ci)
 int unet_conv3_s2_dx(const void* g, int co, const void* w, void* dx, int D, int H, int W, int ci,
-                     int dtype, void* stream) {
+                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long n = (long)D * H * W;
   const dim3 grid((unsigned)((n + THREADS - 1) / THREADS), ci / CI_T);
-  if (dtype == DT_F32)
-    conv3_s2_dx_kernel<float><<<grid, THREADS, 0, s>>>((const float*)g, co, (const float*)w,
-                                                       (float*)dx, D, H, W, ci);
-  else
-    conv3_s2_dx_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        (const __nv_bfloat16*)g, co, (const __nv_bfloat16*)w, (__nv_bfloat16*)dx, D, H, W, ci);
+  conv3_s2_dx_kernel<float><<<grid, THREADS, 0, s>>>((const float*)g, co, (const float*)w,
+                                                     (float*)dx, D, H, W, ci);
   return (int)cudaGetLastError();
 }
 

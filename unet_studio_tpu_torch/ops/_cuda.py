@@ -26,14 +26,14 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("conv.cu", "conv_bwd.cu", "reduce.cu", "warp.cu")
+SOURCES = ("conv.cu", "conv_bwd.cu", "conv_tc.cu", "reduce.cu", "warp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
 # the warp equals its twin's order of f32 operations only without
 # contraction of a * b + c into one rounding
-SOURCE_FLAGS = {"warp.cu": ("-fmad=false",)}
+SOURCE_FLAGS = {"warp.cu": ("-fmad=false",), "conv_tc.cu": ("-Xptxas", "-v")}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {None: 0, "relu": 1, "leaky_relu": 2}
@@ -58,9 +58,18 @@ _SIGNATURES = {
     # dtype, stream
     "unet_conv_dw": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
                      _I, _P],
+    # g, co, w, dx, D, H, W, ci, stream (f32)
+    "unet_conv3_s2_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # g, co, w, dx, D, H, W, ci, dtype, stream
-    "unet_conv3_s2_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "unet_trans2x_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # tensor-core (bf16) route: xa, pa_a, pb_a, act_a, xb, pa_b, pb_b, act_b,
+    # ci, w, bias, y, stats, D, H, W, co, stream
+    "unet_conv3_tc": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _P],
+    # x, w, bias, y, stats, D, H, W, co, stream
+    "unet_conv3_entry_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g, co, w, dx, OD, OH, OW, ci, stream
+    "unet_conv3_s2_dx_tc": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # src, sd, sh, sw, coords, od, oh, ow, peak, out_img, out_lab, mode,
     # window, stream
     "unet_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P],
@@ -103,19 +112,42 @@ def _build(target: Path) -> None:
                  str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
-        errors = []
+        errors, logs = [], []
         for src, p in zip(SOURCES, procs):
             out, _ = p.communicate()
             if p.returncode != 0:
                 errors.append(f"{src}:\n{out}")
+            elif "-v" in SOURCE_FLAGS.get(src, ()):
+                logs.append(out)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        _log_path(target).write_text("".join(logs))
         so_tmp = Path(tmp) / target.name
         subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(so_tmp)],
             check=True, capture_output=True, text=True,
         )
         os.replace(so_tmp, target)  # atomic: a concurrent process never loads half a file
+
+
+def _log_path(target: Path) -> Path:
+    return target.with_suffix(".ptxas.txt")
+
+
+def ptxas_report() -> list[dict]:
+    """Registers, shared memory and spills of each kernel built with
+    ``-Xptxas -v`` (``SOURCE_FLAGS``), from the log kept beside the library:
+    one dict per kernel, its mangled name and ptxas's lines about it."""
+    lib()
+    text = _log_path(BUILD_DIR / f"libunet_torch_kernels_{_source_hash()}.so").read_text()
+    out, cur = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"kernel": line.split("'")[1], "info": []}
+            out.append(cur)
+        elif cur is not None and ("Used" in line or "spill" in line or "bytes stack" in line):
+            cur["info"].append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def lib() -> ctypes.CDLL:

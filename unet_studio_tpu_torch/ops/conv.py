@@ -20,9 +20,14 @@ also returns the f32 ``(2, Co)`` per-channel sum and sum of squares of
 the f32 result before its cast (the next norm's statistics).
 
 Each wrapper runs its twin when the tensor lies on the CPU and launches
-its CUDA kernel (``csrc/conv.cu``) when it lies on a card; there it
-raises on what the kernel does not take.  ``<wrapper>.launches`` counts
-the kernel launches.
+its CUDA kernel when it lies on a card; there it raises on what the
+kernel does not take.  The route goes by dtype: bf16 K1 (all four uses)
+and K7 run on the tensor cores (``csrc/conv_tc.cu``, operands laid out by
+``ops/tc_layout.py``) for the channel counts of ``KERNEL_CHANNELS`` and
+``TC_S2DX``; f32 keeps the FMA kernels (``csrc/conv.cu``,
+``csrc/conv_bwd.cu``), since f32 on the tensor cores would be TF32.
+``<wrapper>.launches`` counts the kernel launches, and
+``<wrapper>.tc_launches`` those of them on the tensor-core route.
 
 The twins compute in f32 from the inputs and weights rounded to the
 compute dtype, as the kernels do.  With ``atomicAdd`` in the kernels'
@@ -38,9 +43,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _cuda
+from . import _cuda, tc_layout
 
-KERNEL_CHANNELS = (16, 32, 64)  # C of the levels the kernels serve
+# C of the levels the kernels serve; bf16 K1 has a tensor-core instance
+# for each (C -> C per input, and the entry's 1 -> C)
+KERNEL_CHANNELS = (16, 32, 64)
+TC_S2DX = ((16, 32), (32, 64), (64, 128))  # bf16 K7: (dx channels, g channels)
 
 
 def apply_prologue(x: torch.Tensor, prologue) -> torch.Tensor:
@@ -201,8 +209,12 @@ def _launch_conv3(xs, prologues, w, b, stride: int, want_stats: bool, name: str)
     if stride == 2 and (d % 2 or h % 2 or wd % 2):
         raise ValueError(f"{name}: stride 2 needs even D, H, W, got {(d, h, wd)}")
     dt = xa.dtype
-    # (Co, Ci, kz, ky, kx) -> (kz, ky, kx, Ci, Co): the kernel's tap-major layout
-    wk = w.detach().to(dtype=dt).permute(2, 3, 4, 1, 0).contiguous()
+    tc = dt == torch.bfloat16 and stride == 1
+    if tc and ci == 1 and co not in KERNEL_CHANNELS:
+        raise ValueError(f"{name}: bf16 entry conv has no tensor-core kernel for Co={co}")
+    if tc and ci != 1 and (ci != co or ci not in KERNEL_CHANNELS):
+        raise ValueError(f"{name}: bf16 conv has no tensor-core kernel for Ci={ci}, Co={co} "
+                         f"(takes Ci = Co in {KERNEL_CHANNELS} per input)")
     bias = b.detach().to(dtype=torch.float32).contiguous()
     y = torch.empty((d // stride, h // stride, wd // stride, co), dtype=dt, device=xa.device)
     stats = torch.zeros((2, co), dtype=torch.float32, device=xa.device) if want_stats else None
@@ -213,14 +225,33 @@ def _launch_conv3(xs, prologues, w, b, stride: int, want_stats: bool, name: str)
     else:
         xb, qa, qb, act_b = None, None, None, 0
     p = _cuda.ptr
+    wdt = w.detach().to(dtype=dt)
     with torch.cuda.device(xa.device):
-        rc = _cuda.lib().unet_conv3(
-            p(xa), p(pa), p(pb), act, p(xb), p(qa), p(qb), act_b, ci, p(wk), p(bias),
-            p(y), p(stats), d, h, wd, co, stride, _cuda.DTYPE_CODES[dt],
-            _cuda.stream_ptr(xa),
-        )
+        if tc and ci == 1:
+            wk = tc_layout.pack_weights(wdt, "entry")
+            rc = _cuda.lib().unet_conv3_entry_tc(p(xa), p(wk), p(bias), p(y), p(stats), d, h,
+                                                 wd, co, _cuda.stream_ptr(xa))
+        elif tc:
+            wk = tc_layout.pack_weights(wdt, "k1_dual" if len(xs) == 2 else "k1")
+            rc = _cuda.lib().unet_conv3_tc(
+                p(xa), p(pa), p(pb), act, p(xb), p(qa), p(qb), act_b, ci, p(wk), p(bias),
+                p(y), p(stats), d, h, wd, co, _cuda.stream_ptr(xa))
+        else:
+            # (Co, Ci, kz, ky, kx) -> (kz, ky, kx, Ci, Co): the FMA kernel's tap-major layout
+            wk = wdt.permute(2, 3, 4, 1, 0).contiguous()
+            rc = _cuda.lib().unet_conv3(
+                p(xa), p(pa), p(pb), act, p(xb), p(qa), p(qb), act_b, ci, p(wk), p(bias),
+                p(y), p(stats), d, h, wd, co, stride, _cuda.DTYPE_CODES[dt],
+                _cuda.stream_ptr(xa))
     _cuda.check(rc, name)
     return (y, stats) if want_stats else y
+
+
+def _count(wrapper, x: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s kernel on ``x``: bf16 is the tensor-core route."""
+    wrapper.launches += 1
+    if x.dtype == torch.bfloat16:
+        wrapper.tc_launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +265,7 @@ def conv3x3x3_s1(x, w, b, *, prologue=None, want_stats=False):
     if x.device.type == "cpu":
         return conv3_plain([x], [prologue], w, b, 1, want_stats)
     out = _launch_conv3([x], [prologue], w, b, 1, want_stats, "conv3x3x3_s1")
-    conv3x3x3_s1.launches += 1
+    _count(conv3x3x3_s1, x)
     return out
 
 
@@ -245,7 +276,7 @@ def conv3x3x3_entry(x, w, b, *, want_stats=False):
     if x.device.type == "cpu":
         return conv3_plain([x], [None], w, b, 1, want_stats)
     out = _launch_conv3([x], [None], w, b, 1, want_stats, "conv3x3x3_entry")
-    conv3x3x3_entry.launches += 1
+    _count(conv3x3x3_entry, x)
     return out
 
 
@@ -259,7 +290,7 @@ def conv3x3x3_dual(xa, xb, w, b, *, prologue_a=None, prologue_b=None):
         return conv3_plain([xa, xb], [prologue_a, prologue_b], w, b, 1)
     out = _launch_conv3([xa, xb], [prologue_a, prologue_b], w, b, 1, False,
                         "conv3x3x3_dual")
-    conv3x3x3_dual.launches += 1
+    _count(conv3x3x3_dual, xa)
     return out
 
 
@@ -318,7 +349,7 @@ def conv3x3x3_dx(g, w):
     if g.device.type == "cpu":
         return conv3_plain([g], [None], wt, zero, 1)
     out = _launch_conv3([g], [None], wt, zero, 1, False, "conv3x3x3_dx")
-    conv3x3x3_dx.launches += 1
+    _count(conv3x3x3_dx, g)
     return out
 
 
@@ -407,15 +438,24 @@ def conv3x3x3_s2_dx(g, w):
         raise ValueError(f"conv3x3x3_s2_dx: weight {tuple(w.shape)} for Co={co} "
                          "(Ci and Co must be multiples of 16)")
     dt = g.dtype
-    # (Co, Ci, kz, ky, kx) -> (kz, ky, kx, Co, Ci)
-    wk = w.detach().to(dtype=dt).permute(2, 3, 4, 0, 1).contiguous()
+    if dt == torch.bfloat16 and (ci, co) not in TC_S2DX:
+        raise ValueError(f"conv3x3x3_s2_dx: bf16 has no tensor-core kernel for Ci={ci}, "
+                         f"Co={co} (takes {TC_S2DX})")
+    wdt = w.detach().to(dtype=dt)
     dx = torch.empty((2 * od, 2 * oh, 2 * ow, ci), dtype=dt, device=g.device)
     p = _cuda.ptr
     with torch.cuda.device(g.device):
-        rc = _cuda.lib().unet_conv3_s2_dx(p(g), co, p(wk), p(dx), 2 * od, 2 * oh, 2 * ow, ci,
-                                          _cuda.DTYPE_CODES[dt], _cuda.stream_ptr(g))
+        if dt == torch.bfloat16:
+            wk = tc_layout.pack_weights(wdt, "s2dx")
+            rc = _cuda.lib().unet_conv3_s2_dx_tc(p(g), co, p(wk), p(dx), od, oh, ow, ci,
+                                                 _cuda.stream_ptr(g))
+        else:
+            # (Co, Ci, kz, ky, kx) -> (kz, ky, kx, Co, Ci)
+            wk = wdt.permute(2, 3, 4, 0, 1).contiguous()
+            rc = _cuda.lib().unet_conv3_s2_dx(p(g), co, p(wk), p(dx), 2 * od, 2 * oh, 2 * ow,
+                                              ci, _cuda.stream_ptr(g))
     _cuda.check(rc, "conv3x3x3_s2_dx")
-    conv3x3x3_s2_dx.launches += 1
+    _count(conv3x3x3_s2_dx, g)
     return dx
 
 
@@ -450,8 +490,10 @@ def conv_trans2x_dx(g, w):
 WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x,
             conv3x3x3_dx, conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx, conv_trans2x_dx,
             conv_trans2x_dw)
+TC_WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_dx, conv3x3x3_s2_dx)
 for _fn in WRAPPERS:
     _fn.launches = 0
+    _fn.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
