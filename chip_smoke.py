@@ -23,15 +23,18 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    share of ``infer``.
 5. Each backward kernel (K1 as dx, K5-K9, K2 ``norm_bwd``) against its
    twin at the flagship shapes, in bf16 and in f32, with its times and
-   bound as in phase 2 (K1 dx and K7 in bf16 on the tensor cores).
+   bound as in phase 2 (K1 dx, K5 and K7 in bf16 on the tensor cores;
+   K5 also per level and at the entry, ``tc_ms_c*``, ``tc_ms_entry``,
+   beside its f32 FMA route, ``f32_fma_ms``, and bitwise over two
+   launches).
 6. The train step (``build_train_step``) at full width on two items it
    synthesizes from synthetic phantoms (contrast simulation and the
    default augmentation, with rubber stamps): every gradient of an f32
    step through the kernels against the same step through the twins, on
    the same draws; the bf16 step against the f32 one; three bf16 steps
    with the loss falling; each kernel's launches in one step (counts set
-   to 0 just before it; every bf16 K1 and K7 launch on the tensor cores,
-   ``tc_launches``), the step's synthesis / forward / backward /
+   to 0 just before it; every bf16 K1, K5 and K7 launch on the tensor
+   cores, ``tc_launches``), the step's synthesis / forward / backward /
    optimizer split, its device busy share and top kernels, and its peak
    memory.
 7. The augmentation's kernels against their twins at the flagship grid:
@@ -39,11 +42,16 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    and without the supercell window, over one default-options coordinate
    field, the linear warp at the stamp grid 48x56x48, K2's max, sum and
    sqdiff; one augmentation and one contrast simulation per item, timed.
+   Every K2 row (phases 2, 5, 7) also gives ``device_ms``, the kernel's own
+   time from ``torch.profiler``, and ``host_ms``, the wrapper's host time
+   per call, beside the event-timed ``ms``, and checks that two calls
+   give the same bits.
    (It runs before phase 6, so that the step's counted run covers these
    kernels.)
 8. The CLI on the card: ``--action train`` on a synthetic BIDS directory
    with one 182x218x182 1 mm template (3 epochs of 2 items, the default
-   augmentation, launches counted around it), its resume at epoch 3,
+   augmentation, launches counted around it, every bf16 K1, K5 and K7
+   launch on the tensor cores), its resume at epoch 3,
    ``--action evaluate`` with the final model; then the convergence
    check of tests/test_convergence.py (validation dice error down by more
    than 40 %, template dice above 0.8).
@@ -144,6 +152,49 @@ def timed_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 5):
+    """Mean device time per call of the kernels whose name holds
+    ``kernel`` ("": every kernel ``fn`` launches) over ``reps`` calls after
+    a warm-up (torch.profiler, CUPTI): the kernels' own time, without the
+    host time between launches that ``timed_ms`` also sees."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return total / 1e3 / reps if total > 0 else "not measured (no device time)"
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time per call: the wall clock over back-to-back calls that do
+    not wait for the card (their launches queue), a warm-up first."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
+
+
+def repeatable(fn) -> bool:
+    """Two calls give the same bits (the K2 and dW kernels sum in a fixed
+    order)."""
+    import torch
+
+    return bool(torch.equal(fn(), fn()))
 
 
 def rel_err(got, ref) -> float:
@@ -283,10 +334,15 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
            "unet_studio_tpu/ops/pallas_conv.py:766", K.conv3x3x3_dx, errs, *timing,
            BF16_TENSOR_FLOPS, fma)
 
-    def dw_phase(name, wrapper, plain_fn, cases, replaces, lib_call, nbytes, ops):
+    def dw_phase(name, wrapper, plain_fn, cases, replaces, lib_call, nbytes, ops, src=bwd_src,
+                 tc=False):
         """dW kernel vs twin on each (A dims, CA, B dims, CB) case; the
-        first case, in bf16, is the timed one."""
-        errs = {}
+        first case, in bf16, is the timed one.  ``tc``: bf16 runs on the
+        tensor cores, timed per case (``tc_ms_c*``, ``tc_ms_entry``, beside
+        ``bound_ms_*``) and checked bitwise over two launches; f32 runs on
+        the FMA kernel, timed per case too (``f32_fma_ms_*``; the first
+        case's is the row's ``f32_fma_ms``)."""
+        errs, fma = {}, {}
         for i, (a_dims, ca, b_dims, cb) in enumerate(cases):
             for dtype, _, tag in dtypes:
                 x, g = rnd((*a_dims, ca), dtype), rnd((*b_dims, cb), dtype)
@@ -294,12 +350,25 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
                 e = rel_err(got, ref)
                 require(e < SUM_TOL, f"{name} {ca}->{cb} {tag}: err {e}")
                 errs[f"{tag}_rel_{ca}_{cb}"] = e
+                if tc:
+                    # each level timed on its route (bf16: tensor cores, f32:
+                    # FMA), beside its own bound
+                    lvl = "entry" if ca == 1 else f"c{ca}"
+                    key = "tc_ms_" if dtype == torch.bfloat16 else "f32_fma_ms_"
+                    errs[key + lvl] = timed_ms(lambda: wrapper(x, g))
+                if tc and dtype == torch.bfloat16:
+                    require(repeatable(lambda: wrapper(x, g)), f"{name} {ca}->{cb} repeat")
+                    n = x.numel() // ca
+                    errs["bound_ms_" + lvl] = max(2 * (ca + cb) * n / HBM_BYTES_PER_S,
+                                                  2 * 27 * ca * cb * n / BF16_TENSOR_FLOPS) * 1e3
                 if i == 0 and dtype == torch.bfloat16:
                     errs["bf16_abs"] = abs_err(got, ref)
                     timing = (timed_ms(lambda: wrapper(x, g)), timed_ms(lambda: plain_fn(x, g)),
                               timed_ms(lib_call(x, g)), nbytes, ops)
                 del x, g, got, ref
-        record(name, bwd_src, replaces, wrapper, errs, *timing, BF16_TENSOR_FLOPS)
+        if tc:
+            fma["f32_fma_ms"] = errs["f32_fma_ms_c%d" % cases[0][1]]
+        record(name, src, replaces, wrapper, errs, *timing, BF16_TENSOR_FLOPS, fma)
 
     def dw_plain(ks, stride, pad, swap=False):
         def fn(x, g):
@@ -319,7 +388,8 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
              "unet_studio_tpu/ops/pallas_conv.py:583",
              lambda x, g: lib_bwd(g, x, weight((16, 16, 3, 3, 3), x), 1, 1, False,
                                   [False, True, False]),
-             4 * 16 * nvox(S0), 2 * 27 * 16 * 16 * nvox(S0))
+             4 * 16 * nvox(S0), 2 * 27 * 16 * 16 * nvox(S0),
+             src="unet_studio_tpu_torch/csrc/conv_tc.cu", tc=True)
     # K6: stride 2, C -> 2C (64 -> 128 included)
     dw_phase("conv3x3x3_s2_dw", K.conv3x3x3_s2_dw, dw_plain(3, 2, 1),
              ((S0, 16, S1, 32), (S1, 32, S2, 64), (S2, 64, S3, 128)),
@@ -399,9 +469,14 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
             got, ref = R.norm_bwd_sums(g, x, mean, inv), R.norm_bwd_sums_plain(g, x, mean, inv)
             e = rel_err(got, ref)
             require(e < SUM_TOL, f"norm_bwd_sums C={c} {tag}: err {e}")
+            require(repeatable(lambda: R.norm_bwd_sums(g, x, mean, inv)),
+                    f"norm_bwd_sums C={c} {tag} repeat")
             errs[f"{tag}_rel_c{c}"] = e
             if c == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(got, ref)
+                errs["device_ms"] = device_ms(lambda: R.norm_bwd_sums(g, x, mean, inv),
+                                              "channel_reduce_kernel")
+                errs["host_ms"] = host_ms(lambda: R.norm_bwd_sums(g, x, mean, inv))
                 ms = timed_ms(lambda: R.norm_bwd_sums(g, x, mean, inv))
                 plain_ms = timed_ms(lambda: R.norm_bwd_sums_plain(g, x, mean, inv))
                 timing = (ms, plain_ms, None, 2 * 2 * c * n, 5 * c * n)
@@ -506,7 +581,7 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     log("tensor-core launches in the bf16 step: " + json.dumps(tc))
     require(all(v > 0 for v in tc.values())
             and all(tc[k] == records[k][0]["launches"] for k in tc),
-            "a bf16 K1 or K7 launch of the train step missed the tensor cores")
+            "a bf16 K1, K5 or K7 launch of the train step missed the tensor cores")
     losses = [float(loss1)]
     step_profile = {}
 
@@ -626,8 +701,13 @@ def phase7_augmentation_kernels(record, rnd, dev, card: str, shape=(192, 224, 19
     neg = -img - 1.0
     require(float(got) == float(want) and float(R.volume_max(neg)) == 0.0,
             f"volume_max {float(got)} vs {float(want)}, all-negative {float(R.volume_max(neg))}")
+    require(repeatable(lambda: R.volume_max(img)), "volume_max repeat")
     record("volume_max", red_src, "unet_studio_tpu/ops/packed.py:1364", R.volume_max,
-           {"max_abs": abs(float(got) - float(want)), "all_negative": float(R.volume_max(neg))},
+           {"max_abs": abs(float(got) - float(want)), "all_negative": float(R.volume_max(neg)),
+            "device_ms": device_ms(lambda: R.volume_max(img), "max_kernel"),
+            "host_ms": host_ms(lambda: R.volume_max(img)),
+            "library_device_ms": device_ms(lambda: torch.amax(img), ""),
+            "library_host_ms": host_ms(lambda: torch.amax(img))},
            timed_ms(lambda: R.volume_max(img)), timed_ms(lambda: R.volume_max_plain(img)),
            timed_ms(lambda: torch.amax(img)), 4 * n, n, F32_FLOPS)
     del neg
@@ -645,9 +725,15 @@ def phase7_augmentation_kernels(record, rnd, dev, card: str, shape=(192, 224, 19
             got, want = wrapper(*args), plain(*args)
             e = rel_err(got, want)
             require(e < SUM_TOL, f"{name} {tag}: err {e}")
+            require(repeatable(lambda: wrapper(*args)), f"{name} {tag} repeat")
             errs[f"{tag}_rel"] = e
             if dtype == torch.bfloat16:
                 errs["max_abs"] = abs_err(got, want)
+                errs["device_ms"] = device_ms(lambda: wrapper(*args), "channel_reduce_kernel")
+                errs["host_ms"] = host_ms(lambda: wrapper(*args))
+                if lib is not None:
+                    errs["library_device_ms"] = device_ms(lambda: lib(x, m), "")
+                    errs["library_host_ms"] = host_ms(lambda: lib(x, m))
                 timing = (timed_ms(lambda: wrapper(*args)), timed_ms(lambda: plain(*args)),
                           None if lib is None else timed_ms(lambda: lib(x, m)),
                           2 * 16 * n, ops * 16 * n)
@@ -701,6 +787,7 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
     from unet_studio_tpu_torch.engine.train import TrainEngine, TrainParam
     from unet_studio_tpu_torch.io.nifti import canonicalize_lps, read_nifti, write_nifti
     from unet_studio_tpu_torch.models.unet3d import UNet3d
+    from unet_studio_tpu_torch.ops import conv as K
     from unet_studio_tpu_torch.ops.augment import AugOptions
 
     def run_cli(argv):
@@ -729,6 +816,7 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
 
     for _, w in records.values():
         w.launches = 0
+        w.tc_launches = 0
     rc, out, train_s = run_cli(["--action", "train", "--model", model, "--bids", bids,
                                 "--batch_size", "2", "--epoch", "3", "--device", dev])
     launches = {k: w.launches for k, (_, w) in records.items()}
@@ -736,8 +824,12 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
     require(rc == 0 and f"save model to {model}.final.nz" in out, "cli train")
     require(all(v > 0 for k, v in launches.items() if k not in OFF_PATH),
             "a kernel of the CLI train path was not launched")
-    for k, (rec, _) in records.items():
+    for k, (rec, w) in records.items():
         rec["launches_cli_train"] = launches[k]
+        if w in K.TC_WRAPPERS:
+            rec["tc_launches_cli_train"] = w.tc_launches
+    require(all(w.tc_launches == w.launches for _, w in records.values() if w in K.TC_WRAPPERS),
+            "a bf16 K1, K5 or K7 launch of the CLI train run missed the tensor cores")
     rc, out, resume_s = run_cli(["--action", "train", "--model", model + ".final.nz",
                                  "--bids", bids, "--batch_size", "2", "--epoch", "4",
                                  "--device", dev])
@@ -1027,8 +1119,15 @@ def main() -> int:
             e = stats_err(st, sr, nvox(dims))
             require(e < STATS_TOL, f"channel_sum_sq C={c} {tag}: err {e}")
             errs[f"{tag}_stats_c{c}"] = e
+            require(repeatable(lambda: R.channel_sum_sq(x)), f"channel_sum_sq C={c} {tag} repeat")
             if c == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(st, sr)
+                errs["device_ms"] = device_ms(lambda: R.channel_sum_sq(x), "channel_reduce_kernel")
+                errs["host_ms"] = host_ms(lambda: R.channel_sum_sq(x))
+                errs["library_device_ms"] = device_ms(
+                    lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0), "")
+                errs["library_host_ms"] = host_ms(
+                    lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0))
                 ms = timed_ms(lambda: R.channel_sum_sq(x))
                 plain_ms = timed_ms(lambda: R.channel_sum_sq_plain(x))
                 # library yardstick: the same statistics in one call

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1-K12, all of K2's modes) against their plain
-PyTorch twins on the card, at small shapes with odd sizes; bf16 K1 and K7
-run on the tensor-core route (``test_tc_*`` add whole-tile shapes).  These tests need an NVIDIA
+PyTorch twins on the card, at small shapes with odd sizes; bf16 K1, K5
+and K7 run on the tensor-core route (``test_tc_*`` add whole-tile shapes);
+K2's modes are bitwise repeatable and need no zeroed output.  These tests need an NVIDIA
 GPU and skip without one; run them there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -419,3 +420,84 @@ def test_warp_rejects(dev):
         W.warp_linear(img, coords[:, :, :7].contiguous(), True)
     with pytest.raises(ValueError):
         W.warp_linear(img.double(), coords, False)
+
+
+@pytest.mark.parametrize("ci,co", [(1, 16), (16, 16), (32, 32), (64, 64), (1, 32), (16, 64)])
+@pytest.mark.parametrize("dims", [(5, 10, 14), (3, 5, 7), (2, 6, 17), (4, 16, 32), (6, 20, 40)])
+def test_tc_dw(dev, ci, co, dims):
+    """bf16 K5 on the tensor cores against the per-tap matmul twin, ragged
+    and whole tiles, and tiles whose halo lies inside the volume (6, 20,
+    40); two launches give the same bits; tc_launches counts."""
+    rng = np.random.default_rng(ci + co + sum(dims))
+    x = _t(rng, (*dims, ci), dev, torch.bfloat16)
+    g = _t(rng, (*dims, co), dev, torch.bfloat16)
+    n0, t0 = K.conv3x3x3_dw.launches, K.conv3x3x3_dw.tc_launches
+    got = K.conv3x3x3_dw(x, g)
+    ref = K.conv_dw_plain(x, g, 3, 1, 1).reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2)
+    assert got.dtype == torch.float32 and got.shape == (co, ci, 3, 3, 3)
+    assert _rel(got, ref) < SUM_TOL
+    assert torch.equal(got, K.conv3x3x3_dw(x, g))
+    assert (K.conv3x3x3_dw.launches, K.conv3x3x3_dw.tc_launches) == (n0 + 2, t0 + 2)
+
+
+def test_tc_dw_rejects(dev):
+    """bf16 channel counts without a tensor-core dW instance raise (no FMA
+    fallback); f32 keeps the FMA kernel and is not counted as tc."""
+    bf = torch.bfloat16
+    x = torch.zeros((4, 4, 4, 48), device=dev, dtype=bf)
+    with pytest.raises(ValueError):
+        K.conv3x3x3_dw(x, torch.zeros((4, 4, 4, 16), device=dev, dtype=bf))
+    with pytest.raises(ValueError):
+        K.conv3x3x3_dw(x[..., :16].contiguous(), torch.zeros((4, 4, 4, 128), device=dev, dtype=bf))
+    t0 = K.conv3x3x3_dw.tc_launches
+    K.conv3x3x3_dw(torch.zeros((4, 4, 4, 16), device=dev), torch.zeros((4, 4, 4, 16), device=dev))
+    assert K.conv3x3x3_dw.tc_launches == t0
+
+
+def _poisoned(fn, rows: int, c: int):
+    """Call ``fn`` right after freeing a NaN-filled block of the size of its
+    output, which the caching allocator hands out again, with the partial
+    scratch NaN-filled too: the kernel must write every value itself."""
+    for buf in R._scratch.values():
+        buf.fill_(float("nan"))
+    junk = torch.full((rows * c,), float("nan"), device="cuda")
+    del junk
+    return fn()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,dims", [(16, (5, 7, 9)), (64, (6, 10, 14)), (128, (3, 5, 7)),
+                                    (16, (96, 112, 96))])
+def test_k2_modes_repeatable(dev, dtype, c, dims):
+    """K2 sum, sum_sq, sqdiff and norm_bwd against their twins, bitwise the
+    same over two runs, into an output that was not zeroed."""
+    rng = np.random.default_rng(c + len(dims))
+    x = _t(rng, (*dims, c), dev, dtype) + 0.5
+    g = (0.5 * x.float() + _t(rng, (*dims, c), dev) + 0.25).to(dtype)
+    n = x.numel() // c
+    st = channel_sum_sq_plain(x)
+    mean = st[0] / n
+    inv = torch.rsqrt((st[1] / n - mean * mean).clamp_min(0) + 1e-5)
+    cases = (
+        (1, lambda: R.channel_sum(x), lambda: R.channel_sum_plain(x)),
+        (2, lambda: R.channel_sum_sq(x), lambda: R.channel_sum_sq_plain(x)),
+        (1, lambda: R.channel_sqdiff(x, mean), lambda: R.channel_sqdiff_plain(x, mean)),
+        (2, lambda: R.norm_bwd_sums(g, x, mean, inv),
+         lambda: R.norm_bwd_sums_plain(g, x, mean, inv)),
+    )
+    for rows, fn, plain in cases:
+        first = _poisoned(fn, rows, c)
+        assert bool(torch.isfinite(first).all())
+        assert _rel(first, plain()) < SUM_TOL
+        assert torch.equal(first, _poisoned(fn, rows, c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 9, 11), (192, 224, 192), (5,)])
+def test_volume_max_repeatable(dev, dtype, shape):
+    """K2 max exact, into an output that was not zeroed; an all-negative
+    volume gives 0."""
+    rng = np.random.default_rng(len(shape) + 7)
+    x = _t(rng, shape, dev, dtype)
+    assert float(_poisoned(lambda: R.volume_max(x), 1, 1)) == float(R.volume_max_plain(x))
+    assert float(_poisoned(lambda: R.volume_max(-x.abs() - 1), 1, 1)) == 0.0

@@ -5,7 +5,8 @@
 //    convolution.  One template covers three Pallas kernels:
 //    K5 replaces unet_studio_tpu/ops/pallas_conv.py:583 _dw_kernel, the
 //       dW of the 3^3 stride-1 conv (and of the 1->C entry conv, which
-//       runs it at ops/packed.py:1260);
+//       runs it at ops/packed.py:1260), here in f32 only: bf16 K5 runs
+//       on the tensor cores (conv_tc.cu dw_tc_kernel);
 //    K6 replaces unet_studio_tpu/ops/packed.py:897 _s2_dw_kernel, the dW
 //       of the 3^3 stride-2 conv;
 //    K9 replaces unet_studio_tpu/ops/packed.py:782 _trans_dw_kernel, the
@@ -49,8 +50,10 @@
 // it; K6, K7, K8 and K9 at 16<->32 each move 330 MB (0.099 ms) for 28.5
 // GFLOP (K6, K7) or 8.5 GFLOP (K8, K9): bytes bound them too.  These run
 // on the CUDA cores in f32 FMA (no wgmma, no TMA), whose 67 TFLOP/s put
-// K5 at 1.7 ms at best; a tensor-core version of K5, K6, K8 and K9 is
-// later work (bf16 K7 has one, conv_tc.cu).
+// K5 at 1.7 ms at best; bf16 K5 and K7 have tensor-core versions
+// (conv_tc.cu), K6, K8 and K9 are later work.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -163,14 +166,28 @@ conv_dw_kernel(const T* __restrict__ A, int AD, int AH, int AW, int ca,
   }
 }
 
-// out[i] = sum over blocks k, in order, of part[k][i]
-__global__ void dw_reduce_kernel(const float* __restrict__ part, int nblk, long n,
-                                 float* __restrict__ out) {
-  const long i = (long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= n) return;
+// out[i] = sum over blocks k of part[k][i] in a fixed order: a block takes
+// 32 consecutive i (one per lane, coalesced), its 8 warps the blocks k =
+// warp, warp + 8, ... in order, then the 8 warp sums are added in warp order.
+#define RED_I 32
+#define RED_W 8
+__global__ void __launch_bounds__(RED_I * RED_W)
+dw_reduce_kernel(const float* __restrict__ part, int nblk, long n, float* __restrict__ out) {
+  __shared__ float sums[RED_W][RED_I];
+  const int lane = threadIdx.x % RED_I, warp = threadIdx.x / RED_I;
+  const long i = (long)blockIdx.x * RED_I + lane;
   float s = 0.0f;
-  for (int k = 0; k < nblk; ++k) s += part[(long)k * n + i];
-  out[i] = s;
+  if (i < n)
+#pragma unroll 4
+    for (int k = warp; k < nblk; k += RED_W) s += part[(long)k * n + i];
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && i < n) {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < RED_W; ++w) t += sums[w][lane];
+    out[i] = t;
+  }
 }
 
 // taps of one axis that reach dx coordinate i = 2q + r of a 3/stride-2/pad-1
@@ -296,10 +313,11 @@ template <typename T>
 static int dispatch_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, int bd,
                        int bh, int bw, int cb, int ks, int stride, int pad, float* part,
                        int nblk, cudaStream_t s) {
-  if (ks == 3 && stride == 1 && pad == 1 && ca == 1)
-    launch_dw<T, 3, 1, 1, 1>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
-  else if (ks == 3 && stride == 1 && pad == 1)
-    launch_dw<T, 3, 1, 1, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
+  constexpr bool F32 = std::is_same<T, float>::value;  // bf16 K5 is conv_tc.cu's
+  if (F32 && ks == 3 && stride == 1 && pad == 1 && ca == 1)
+    launch_dw<float, 3, 1, 1, 1>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
+  else if (F32 && ks == 3 && stride == 1 && pad == 1)
+    launch_dw<float, 3, 1, 1, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
   else if (ks == 3 && stride == 2 && pad == 1)
     launch_dw<T, 3, 2, 1, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
   else if (ks == 2 && stride == 2 && pad == 0)
@@ -309,12 +327,15 @@ static int dispatch_dw(const void* a, int ad, int ah, int aw, int ca, const void
   return 0;
 }
 
+extern "C" int unet_dw_reduce(const void* part, int nblk, long n, void* out, void* stream);
+
 extern "C" {
 
 // Each entry returns cudaGetLastError() after its launches (0 on
 // success).  The Python wrappers (ops/conv.py) have checked dtype,
 // shapes, contiguity, 16-byte alignment and the channel counts: ca is 1
 // (ks 3, stride 1 only) or a multiple of 16, cb, co and ci multiples of 16.
+// dtype bf16 with ks 3 and stride 1 has no instance here (conv_tc.cu's).
 
 // part: (nblk, ks^3, ca, cb) f32 scratch; out: (ks^3, ca, cb) f32
 int unet_conv_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, int bd, int bh,
@@ -327,9 +348,14 @@ int unet_conv_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, i
                      : dispatch_dw<__nv_bfloat16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, ks,
                                                   stride, pad, (float*)part, nblk, s);
   if (rc != 0) return rc;
-  const long n = (long)ks * ks * ks * ca * cb;
-  dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>((const float*)part, nblk, n,
-                                                                (float*)out);
+  return unet_dw_reduce(part, nblk, (long)ks * ks * ks * ca * cb, out, stream);
+}
+
+// out[i] = sum over k < nblk, in order, of part[k * n + i]: the second pass
+// of every dW kernel (conv_tc.cu's dw_tc_kernel too)
+int unet_dw_reduce(const void* part, int nblk, long n, void* out, void* stream) {
+  dw_reduce_kernel<<<(unsigned)((n + RED_I - 1) / RED_I), RED_I * RED_W, 0,
+                     (cudaStream_t)stream>>>((const float*)part, nblk, n, (float*)out);
   return (int)cudaGetLastError();
 }
 

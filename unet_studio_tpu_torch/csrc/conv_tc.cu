@@ -1,6 +1,6 @@
 // bf16 tensor-core kernels of the 3^3 convolutions, channels-last
 // (D, H, W, C), f32 accumulation: the route of every bf16 call of K1 (all
-// four uses) and K7.  f32 calls keep the FMA kernels of conv.cu and
+// four uses), K5 and K7.  f32 calls keep the FMA kernels of conv.cu and
 // conv_bwd.cu (on the tensor cores f32 would mean TF32).
 //
 // K1 conv3_tc_kernel<CI, CO, NSRC, TZ> replaces
@@ -13,8 +13,11 @@
 //    conv_entry (Ci = 1).
 // K7 s2dx_tc_kernel<CI, CO> replaces unet_studio_tpu/ops/packed.py:1008
 //    _s2_dx_kernel (conv3x3x3_s2_dx).
+// K5 dw_tc_kernel<CI> and dw_entry_tc_kernel (Ci = 1) replace
+//    unet_studio_tpu/ops/pallas_conv.py:583 _dw_kernel (conv3x3x3_dw); their
+//    design is described at the kernels.
 //
-// Each is an implicit GEMM on mma.sync.m16n8k16 (bf16 in, f32 out):
+// The K1 and K7 kernels are each an implicit GEMM on mma.sync.m16n8k16 (bf16 in, f32 out):
 //   - M is a tile of output voxels, 16 consecutive x per MMA row block;
 //   - N is the output channels, all of them in one block;
 //   - K is walked in k-steps of 16: (source, tap, 16-channel chunk) for
@@ -730,6 +733,349 @@ s2dx_tc_kernel(const __nv_bfloat16* __restrict__ g, const unsigned char* __restr
 }
 
 // ---------------------------------------------------------------------------
+// K5: weight gradient of the 3^3 stride-1 pad-1 conv, x (D, H, W, CI) and
+// g (D, H, W, CO) -> per-block partials of dW (27, CI, CO), f32
+// ---------------------------------------------------------------------------
+//
+// out[t][ci][co] = sum_o x[o + t - 1][ci] g[o][co] is a GEMM per tap t
+// with M = CI, N = CO and K = every voxel o: A = x^T shifted by the tap,
+// B = g.  A block takes a slice of DW_NB output channels (grid.y) and
+// walks tiles of TZ x TY x 16 output voxels (grid.x, persistent, one
+// tile after another); K is walked in k-steps of the 16 voxels of one x
+// row (a k-row).  A tile stages g's slice (zero past the ragged edge, so
+// those voxels add nothing) and x's halo, (TZ+2) x (TY+2) x 18 voxels
+// (zero outside the volume), with cp.async, as rows of 16-byte chunks
+// XOR-swizzled by voxel as in K1, double-buffered: the next tile's copies
+// fly while this tile's MMAs run.  Both operands are stored voxel-major,
+// K-major for the mma, so both come through ldmatrix.trans: a tap's A is
+// the halo read at a shift of (dz, dy, dx) voxels, one row address per
+// lane, whatever the shift.
+// Warp w of 9 owns the column (dz, dx) = (w / 3, w % 3) of taps, all
+// three dy, every m-tile, and the slice's two n-tiles, with its
+// accumulators in registers for the whole tile walk.  Walking the k-rows
+// of a z plane in y order, the A fragment of halo row y + 2 serves tap
+// dy = 2 at k-row y, dy = 1 at y + 1 and dy = 0 at y + 2: a window of
+// fragments per m-tile slides down the plane, one ldmatrix per k-row and
+// m-tile for 6 MMAs, beside the k-row's one B load; the next k-row's
+// fragments are loaded before this one's MMAs.
+// The block writes its accumulators as its slice of the (nblk, 27, CI,
+// CO) partial buffer; unet_dw_reduce (conv_bwd.cu) adds the blocks in a
+// fixed order, so dW is bitwise the same from run to run.
+// dw_entry_tc_kernel, the entry (CI = 1): A is the im2col of the
+// one-channel halo, its 27 taps padded to 32 (two m-tiles) per voxel,
+// built in shared memory as in entry_tc_kernel; its two jobs are too few
+// for the warps, so 8 warps share out the k-rows instead and add their
+// accumulators in warp order; the next tile's halo is loaded into
+// registers while this tile's MMAs run.
+// The tile geometry, the job map and the partial shape are those of
+// ops/tc_layout.py (dw_*), which the CPU tests replay against the twin.
+// A stride-2 (K6) or ks2 (K9) form changes only the halo's extent and a
+// tap's voxel offset (the lane's row address), not the fragment or job
+// structure.
+//
+// What bounds it on the H100 (bf16 in, f32 out): level 0, 16->16, moves
+// 528 MB (0.158 ms) for 114 GFLOP (0.115 ms at the bf16 tensor-core peak),
+// so bytes; levels 1 and 2 (32->32, 64->64) are bound by operations.
+
+#define DW_NB 16       // output channels per block (two n-tiles)
+#define DW_WARPS 9     // one per (dz, dx) tap column
+#define DW_THREADS (DW_WARPS * 32)
+#define DWE_WARPS 8    // the entry's warps
+#define DWE_THREADS (DWE_WARPS * 32)
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* a, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+template <int CI>
+struct DwCfg {
+  static constexpr int TZ = CI == 64 ? 1 : 2, TY = 8;
+  static constexpr int KROWS = TZ * TY;     // k-rows per tile
+  static constexpr int TV = KROWS * TC_TX;  // output voxels per tile
+  static constexpr int HZ = TZ + 2, HY = TY + 2, HX = TC_TX + 2;
+  static constexpr int HV = HZ * HY * HX;
+  static constexpr int NC = CI / 8;  // 16-byte chunks per halo row
+  static constexpr int MT = CI / 16;  // m-tiles
+  static constexpr int HALO_BYTES = HV * CI * 2;
+  static constexpr int G_BYTES = TV * DW_NB * 2;
+  static constexpr int STAGE_BYTES = HALO_BYTES + G_BYTES;
+  static constexpr int SMEM = 2 * STAGE_BYTES;
+};
+
+// lane's row of the 8x8 matrix it addresses in ldmatrix.x4.trans: A rows
+// are k = voxels 0-7 then 8-15 (matrices 0, 1 | 2, 3) at chunks +0, +1;
+// B's are voxels 0-7, 8-15 at chunk 0, then at chunk 1
+__device__ __forceinline__ int dw_a_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int dw_a_chunk(int lane) { return (lane >> 3) & 1; }
+__device__ __forceinline__ int dw_b_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
+__device__ __forceinline__ int dw_b_chunk(int lane) { return lane >> 4; }
+
+// cp.async g's DW_NB-channel slice of a tile of TV voxels (TY rows of 16
+// per z plane) into gbuf, zero past the volume
+template <int TY, int TV, int NTHR>
+__device__ __forceinline__ void dw_stage_g(unsigned char* gbuf, const __nv_bfloat16* g, int co0,
+                                           int CO, int x0, int y0, int z0, int D, int H, int W) {
+  for (int i = threadIdx.x; i < TV * 2; i += NTHR) {
+    const int v = i >> 1, pc = i & 1, c = swz<2>(v, pc);
+    const int gx = x0 + v % TC_TX, gy = y0 + (v / TC_TX) % TY, gz = z0 + v / (TC_TX * TY);
+    const bool in = gx < W && gy < H && gz < D;
+    const __nv_bfloat16* src = in ? g + (((long)gz * H + gy) * W + gx) * CO + co0 + c * 8 : g;
+    cp_async16(gbuf + v * 32 + pc * 16, src, in ? 16 : 0);
+  }
+}
+
+template <int CI>
+__global__ void __launch_bounds__(DW_THREADS)
+dw_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g, int D,
+             int H, int W, int CO, float* __restrict__ part) {
+  using C = DwCfg<CI>;
+  constexpr int MT = C::MT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int co0 = blockIdx.y * DW_NB;
+  const int dz = warp / 3, dx = warp % 3;  // this warp's tap column
+  const int a_row = dw_a_row(lane), a_chunk = dw_a_chunk(lane);
+  const int b_row = dw_b_row(lane), b_chunk = dw_b_chunk(lane);
+  const int ntx = (W + TC_TX - 1) / TC_TX, nty = (H + C::TY - 1) / C::TY;
+  const int ntz = (D + C::TZ - 1) / C::TZ;
+  const long ntiles = (long)ntx * nty * ntz;
+
+  // stage x's halo and g's slice of `tile` into buffer `buf`
+  auto stage = [&](long tile, int buf) {
+    const int x0 = (int)(tile % ntx) * TC_TX;
+    const int y0 = (int)((tile / ntx) % nty) * C::TY;
+    const int z0 = (int)(tile / ((long)ntx * nty)) * C::TZ;
+    unsigned char* hs = smem + buf * C::STAGE_BYTES;
+    for (int i = threadIdx.x; i < C::HV * C::NC; i += DW_THREADS) {
+      const int v = i / C::NC, pc = i % C::NC, c = swz<C::NC>(v, pc);
+      const int hx = v % C::HX, hy = (v / C::HX) % C::HY, hz = v / (C::HX * C::HY);
+      const int gx = x0 + hx - 1, gy = y0 + hy - 1, gz = z0 + hz - 1;
+      const bool in = gx >= 0 && gx < W && gy >= 0 && gy < H && gz >= 0 && gz < D;
+      const __nv_bfloat16* src = in ? x + (((long)gz * H + gy) * W + gx) * CI + c * 8 : x;
+      cp_async16(hs + v * CI * 2 + pc * 16, src, in ? 16 : 0);
+    }
+    dw_stage_g<C::TY, C::TV, DW_THREADS>(hs + C::HALO_BYTES, g, co0, CO, x0, y0, z0, D, H, W);
+  };
+
+  float acc[MT][3][2][4];  // [m-tile][dy][n-tile]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mt][dy][nt][k] = 0.0f;
+
+  int buf = 0;
+  if ((long)blockIdx.x < ntiles) stage(blockIdx.x, 0);
+  cp_async_commit();
+  for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    if (tile + gridDim.x < ntiles) stage(tile + gridDim.x, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group has landed (the next one may fly)
+    __syncthreads();
+    const uint32_t h_u32 = smem_u32(smem + buf * C::STAGE_BYTES);
+    const uint32_t g_u32 = h_u32 + C::HALO_BYTES;
+    auto load_a = [&](uint32_t* a, int kz, int hy, int mt) {
+      const int v = ((kz + dz) * C::HY + hy) * C::HX + dx + a_row;
+      ldsm_x4_trans(a, h_u32 + v * CI * 2 + swz<C::NC>(v, mt * 2 + a_chunk) * 16);
+    };
+#pragma unroll 1
+    for (int kz = 0; kz < C::TZ; ++kz) {
+      // A of halo rows y .. y + 3 (slot y % 4): rows y, y + 1, y + 2 feed
+      // k-row y, row y + 3 and k-row y + 1's B load while its MMAs run
+      uint32_t win[MT][4][4], b[2][4];  // b: b0, b1 of n-tile 0, then 1
+      auto load_b = [&](uint32_t* bb, int ky) {
+        const int vb = (kz * C::TY + ky) * TC_TX + b_row;
+        ldsm_x4_trans(bb, g_u32 + vb * 32 + swz<2>(vb, b_chunk) * 16);
+      };
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hy = 0; hy < 3; ++hy) load_a(win[mt][hy], kz, hy, mt);
+      load_b(b[0], 0);
+#pragma unroll
+      for (int ky = 0; ky < C::TY; ++ky) {
+        if (ky + 1 < C::TY) {
+          load_b(b[(ky + 1) & 1], ky + 1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) load_a(win[mt][(ky + 3) % 4], kz, ky + 3, mt);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const uint32_t* a = win[mt][(ky + dy) % 4];
+            mma_bf16(acc[mt][dy][0], a, b[ky & 1][0], b[ky & 1][1]);
+            mma_bf16(acc[mt][dy][1], a, b[ky & 1][2], b[ky & 1][3]);
+          }
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it is staged again
+  }
+
+  // the block's partial: acc[mt][dy][nt] holds rows (g, g + 8) of m-tile
+  // mt and columns 2t, 2t + 1 of n-tile nt, for tap (dz, dy, dx)
+  const int gq = lane >> 2, t = lane & 3;
+  float* out = part + (long)blockIdx.x * 27 * CI * CO;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tap = dz * 9 + dy * 3 + dx;
+          const int ci = mt * 16 + gq + 8 * h, co = co0 + nt * 8 + 2 * t;
+          *reinterpret_cast<float2*>(out + ((long)tap * CI + ci) * CO + co) =
+              make_float2(acc[mt][dy][nt][2 * h], acc[mt][dy][nt][2 * h + 1]);
+        }
+}
+
+struct DwEntryCfg {
+  static constexpr int TZ = 2, TY = 8;
+  static constexpr int KROWS = TZ * TY, TV = KROWS * TC_TX;
+  static constexpr int HZ = TZ + 2, HY = TY + 2, HX = TC_TX + 2;
+  static constexpr int HV = HZ * HY * HX;
+  static constexpr int HPT = (HV + DWE_THREADS - 1) / DWE_THREADS;  // halo values per thread
+  static constexpr int A_BYTES = TV * 64;  // im2col: 32 bf16 taps per voxel
+  static constexpr int G_BYTES = TV * DW_NB * 2;
+  static constexpr int SMEM = A_BYTES + 2 * G_BYTES + ((HV * 2 + 15) / 16) * 16;
+  static_assert(DWE_WARPS * 32 * DW_NB * 4 <= A_BYTES, "the warps' sums fit in the im2col");
+};
+
+__global__ void __launch_bounds__(DWE_THREADS, 3)
+dw_entry_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                   int D, int H, int W, int CO, float* __restrict__ part) {
+  using C = DwEntryCfg;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* abuf = smem;                      // im2col, then the warps' sums
+  unsigned char* gbuf = smem + C::A_BYTES;         // g's slice, two buffers
+  unsigned short* hs = reinterpret_cast<unsigned short*>(gbuf + 2 * C::G_BYTES);
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int co0 = blockIdx.y * DW_NB;
+  const int a_row = dw_a_row(lane), a_chunk = dw_a_chunk(lane);
+  const int b_row = dw_b_row(lane), b_chunk = dw_b_chunk(lane);
+  const int ntx = (W + TC_TX - 1) / TC_TX, nty = (H + C::TY - 1) / C::TY;
+  const int ntz = (D + C::TZ - 1) / C::TZ;
+  const long ntiles = (long)ntx * nty * ntz;
+  const uint32_t a_u32 = smem_u32(abuf);
+
+  unsigned short hv[C::HPT];  // this thread's halo values of the next tile
+  auto origin = [&](long tile, int& x0, int& y0, int& z0) {
+    x0 = (int)(tile % ntx) * TC_TX;
+    y0 = (int)((tile / ntx) % nty) * C::TY;
+    z0 = (int)(tile / ((long)ntx * nty)) * C::TZ;
+  };
+  // the one-channel halo into registers, 2-byte loads, 0 outside the volume
+  auto fetch_halo = [&](long tile) {
+    int x0, y0, z0;
+    origin(tile, x0, y0, z0);
+#pragma unroll
+    for (int k = 0; k < C::HPT; ++k) {
+      const int v = tid + k * DWE_THREADS;
+      const int hx = v % C::HX, hy = (v / C::HX) % C::HY, hz = v / (C::HX * C::HY);
+      const int gx = x0 + hx - 1, gy = y0 + hy - 1, gz = z0 + hz - 1;
+      const bool in = v < C::HV && gx >= 0 && gx < W && gy >= 0 && gy < H && gz >= 0 && gz < D;
+      hv[k] = in ? xs[((long)gz * H + gy) * W + gx] : (unsigned short)0;
+    }
+  };
+  auto stage_g = [&](long tile, int buf) {
+    int x0, y0, z0;
+    origin(tile, x0, y0, z0);
+    dw_stage_g<C::TY, C::TV, DWE_THREADS>(gbuf + buf * C::G_BYTES, g, co0, CO, x0, y0, z0, D,
+                                          H, W);
+  };
+
+  float acc[2][2][4];  // [m-tile][n-tile]: the 32 padded taps x 16 channels
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.0f;
+
+  int buf = 0;
+  if ((long)blockIdx.x < ntiles) {
+    fetch_halo(blockIdx.x);
+    stage_g(blockIdx.x, 0);
+  }
+  cp_async_commit();
+  for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const long next = tile + gridDim.x;
+#pragma unroll
+    for (int k = 0; k < C::HPT; ++k)
+      if (tid + k * DWE_THREADS < C::HV) hs[tid + k * DWE_THREADS] = hv[k];
+    if (next < ntiles) stage_g(next, buf ^ 1);
+    cp_async_commit();
+    __syncthreads();  // the halo is in place
+    // im2col: row m holds the 27 taps of output voxel m and 5 zeros, as
+    // four swizzled chunks of 8 taps; thread builds chunk tid % 4
+    {
+      const int c = tid % 4;
+      for (int i = tid; i < C::TV * 4; i += DWE_THREADS) {
+        const int m = i / 4, r = m / TC_TX;
+        const int row = ((r / C::TY) * C::HY + r % C::TY) * C::HX + m % TC_TX;
+        __align__(16) unsigned short v8[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int tap = c * 8 + k;
+          v8[k] = tap < 27 ? hs[row + ((tap / 9) * C::HY + (tap / 3) % 3) * C::HX + tap % 3]
+                           : (unsigned short)0;
+        }
+        *reinterpret_cast<uint4*>(abuf + m * 64 + swz<4>(m, c) * 16) =
+            *reinterpret_cast<const uint4*>(v8);
+      }
+    }
+    if (next < ntiles) fetch_halo(next);  // in flight during the MMAs
+    cp_async_wait<1>();
+    __syncthreads();  // the im2col and this tile's g are in place
+    const uint32_t g_u32 = smem_u32(gbuf + buf * C::G_BYTES);
+#pragma unroll
+    for (int r = warp; r < C::KROWS; r += DWE_WARPS) {
+      uint32_t b[4];
+      const int vb = r * TC_TX + b_row;
+      ldsm_x4_trans(b, g_u32 + vb * 32 + swz<2>(vb, b_chunk) * 16);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t a[4];
+        const int m = r * TC_TX + a_row;
+        ldsm_x4_trans(a, a_u32 + m * 64 + swz<4>(m, mt * 2 + a_chunk) * 16);
+        mma_bf16(acc[mt][0], a, b[0], b[1]);
+        mma_bf16(acc[mt][1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with the im2col, the halo and `buf`
+  }
+
+  // the warps' sums, added in warp order: red[warp][tap][16 columns]
+  const int gq = lane >> 2, t = lane & 3;
+  float* red = reinterpret_cast<float*>(abuf);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mt * 16 + gq + 8 * h, n = nt * 8 + 2 * t;
+        red[(warp * 32 + m) * DW_NB + n] = acc[mt][nt][2 * h];
+        red[(warp * 32 + m) * DW_NB + n + 1] = acc[mt][nt][2 * h + 1];
+      }
+  __syncthreads();
+  float* out = part + (long)blockIdx.x * 27 * CO;
+  for (int i = tid; i < 27 * DW_NB; i += DWE_THREADS) {
+    float s = 0.0f;
+    for (int w = 0; w < DWE_WARPS; ++w) s += red[w * 32 * DW_NB + i];
+    out[(i / DW_NB) * CO + co0 + i % DW_NB] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -747,11 +1093,12 @@ static int sm_count() {
 // block per tile when its weights stream, else as many blocks as fit on
 // the card at once, each walking tiles.
 template <typename K>
-static unsigned grid_for(K kernel, int smem, long ntiles, bool resident) {
+static unsigned grid_for(K kernel, int smem, long ntiles, bool resident,
+                         int threads = TC_THREADS) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (!resident) return (unsigned)ntiles;
   int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TC_THREADS, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   const long cap = (long)(per_sm > 0 ? per_sm : 1) * sm_count();
   return (unsigned)(ntiles < cap ? ntiles : cap);
 }
@@ -797,6 +1144,16 @@ static void launch_s2dx(const void* g, const void* w, void* dx, int OD, int OH, 
                                            (__nv_bfloat16*)dx, OD, OH, OW);
 }
 
+template <typename K>
+static void launch_dw_tc(K kernel, int threads, int smem, const void* x, const void* g, int D,
+                         int H, int W, int co, void* part, int nblk, cudaStream_t s) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<dim3((unsigned)nblk, (unsigned)(co / DW_NB)), threads, smem, s>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, D, H, W, co, (float*)part);
+}
+
+extern "C" int unet_dw_reduce(const void* part, int nblk, long n, void* out, void* stream);
+
 extern "C" {
 
 // Each entry returns cudaGetLastError() after its launch (0 on success),
@@ -841,6 +1198,29 @@ int unet_conv3_entry_tc(const void* x, const void* w, const void* bias, void* y,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// K5: x (D, H, W, ci), g (D, H, W, co) -> dW (27, ci, co) f32 in out, through
+// part: (nblk, 27, ci, co) f32 scratch; nblk blocks per co slice of 16
+// (ops/tc_layout.py dw_blocks)
+int unet_conv_dw_tc(const void* x, const void* g, int D, int H, int W, int ci, int co,
+                    void* part, int nblk, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (co % DW_NB || co < DW_NB || co > 64) return (int)cudaErrorInvalidValue;
+  if (ci == 1)
+    launch_dw_tc(dw_entry_tc_kernel, DWE_THREADS, DwEntryCfg::SMEM, x, g, D, H, W, co, part,
+                 nblk, s);
+  else if (ci == 16)
+    launch_dw_tc(dw_tc_kernel<16>, DW_THREADS, DwCfg<16>::SMEM, x, g, D, H, W, co, part, nblk, s);
+  else if (ci == 32)
+    launch_dw_tc(dw_tc_kernel<32>, DW_THREADS, DwCfg<32>::SMEM, x, g, D, H, W, co, part, nblk, s);
+  else if (ci == 64)
+    launch_dw_tc(dw_tc_kernel<64>, DW_THREADS, DwCfg<64>::SMEM, x, g, D, H, W, co, part, nblk, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return unet_dw_reduce(part, nblk, 27L * ci * co, out, stream);
 }
 
 // K7: g (OD, OH, OW, co) -> dx (2OD, 2OH, 2OW, ci)

@@ -11,6 +11,7 @@ process reuses it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,7 +34,8 @@ NVCC_FLAGS = (
 )
 # the warp equals its twin's order of f32 operations only without
 # contraction of a * b + c into one rounding
-SOURCE_FLAGS = {"warp.cu": ("-fmad=false",), "conv_tc.cu": ("-Xptxas", "-v")}
+SOURCE_FLAGS = {"warp.cu": ("-fmad=false",), "conv_tc.cu": ("-Xptxas", "-v"),
+                "reduce.cu": ("-Xptxas", "-v")}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {None: 0, "relu": 1, "leaky_relu": 2}
@@ -48,12 +50,12 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _I, _P],
     # x, pa, pb, act, ci, w, bias, y, D, H, W, co, dtype, stream
     "unet_trans2x": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, mean, n_vox, c, mode, out, dtype, stream
-    "unet_channel_moments": [_P, _P, _L, _I, _I, _P, _I, _P],
-    # x, n, out, dtype, stream
-    "unet_volume_max": [_P, _L, _P, _I, _P],
-    # g, x, mean, inv, n_vox, c, out, dtype, stream
-    "unet_channel_norm_bwd": [_P, _P, _P, _P, _L, _I, _P, _I, _P],
+    # x, mean, n_vox, c, mode, part, out, dtype, stream
+    "unet_channel_moments": [_P, _P, _L, _I, _I, _P, _P, _I, _P],
+    # x, n, part, out, dtype, stream
+    "unet_volume_max": [_P, _L, _P, _P, _I, _P],
+    # g, x, mean, inv, n_vox, c, part, out, dtype, stream
+    "unet_channel_norm_bwd": [_P, _P, _P, _P, _L, _I, _P, _P, _I, _P],
     # a, AD, AH, AW, ca, b, BD, BH, BW, cb, ks, stride, pad, part, nblk, out,
     # dtype, stream
     "unet_conv_dw": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
@@ -68,6 +70,10 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _P],
     # x, w, bias, y, stats, D, H, W, co, stream
     "unet_conv3_entry_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, g, D, H, W, ci, co, part, nblk, out, stream (bf16 K5)
+    "unet_conv_dw_tc": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    # part, nblk, n, out, stream
+    "unet_dw_reduce": [_P, _I, _L, _P, _P],
     # g, co, w, dx, OD, OH, OW, ci, stream
     "unet_conv3_s2_dx_tc": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # src, sd, sh, sw, coords, od, oh, ow, peak, out_img, out_lab, mode,
@@ -153,6 +159,8 @@ def ptxas_report() -> list[dict]:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib, last_build_seconds
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             target = BUILD_DIR / f"libunet_torch_kernels_{_source_hash()}.so"
@@ -175,8 +183,18 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
+def on_device(t: torch.Tensor):
+    """A context that makes ``t``'s card the current one; nothing to do
+    (and no device switch paid) when it already is."""
+    if t.device.index == torch._C._cuda_getDevice():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card (PyTorch's own
+    accessor, without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -21,11 +21,12 @@ the f32 result before its cast (the next norm's statistics).
 
 Each wrapper runs its twin when the tensor lies on the CPU and launches
 its CUDA kernel when it lies on a card; there it raises on what the
-kernel does not take.  The route goes by dtype: bf16 K1 (all four uses)
-and K7 run on the tensor cores (``csrc/conv_tc.cu``, operands laid out by
-``ops/tc_layout.py``) for the channel counts of ``KERNEL_CHANNELS`` and
-``TC_S2DX``; f32 keeps the FMA kernels (``csrc/conv.cu``,
-``csrc/conv_bwd.cu``), since f32 on the tensor cores would be TF32.
+kernel does not take.  The route goes by dtype: bf16 K1 (all four uses),
+K5 and K7 run on the tensor cores (``csrc/conv_tc.cu``, operands laid out
+by ``ops/tc_layout.py``) for the channel counts of ``KERNEL_CHANNELS``,
+``tc_layout.DW_CI``/``DW_CO`` and ``TC_S2DX``; f32 keeps the FMA kernels
+(``csrc/conv.cu``, ``csrc/conv_bwd.cu``), since f32 on the tensor cores
+would be TF32.
 ``<wrapper>.launches`` counts the kernel launches, and
 ``<wrapper>.tc_launches`` those of them on the tensor-core route.
 
@@ -383,17 +384,44 @@ def _launch_dw(a, b, ks: int, stride: int, pad: int, name: str):
     return out
 
 
+def _launch_dw_tc(x, g, name: str):
+    """(27, Ci, Co) f32 from the tensor-core dW kernel (bf16 K5)."""
+    ci, co = x.shape[-1], g.shape[-1]
+    _check_act(x, ci, name)
+    _check_act(g, co, name)
+    if g.dtype != torch.bfloat16 or x.shape[:3] != g.shape[:3]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} and g {tuple(g.shape)} "
+                         f"{g.dtype} must be bf16 volumes of one size")
+    if ci not in tc_layout.DW_CI or co not in tc_layout.DW_CO:
+        raise ValueError(f"{name}: bf16 dW has no tensor-core kernel for Ci={ci}, Co={co} "
+                         f"(takes Ci in {tc_layout.DW_CI}, Co in {tc_layout.DW_CO})")
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nblk = tc_layout.dw_blocks(x.shape[:3], ci, co, n_sm)
+    part = torch.empty(tc_layout.dw_partial_shape(nblk, ci, co), dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((27, ci, co), dtype=torch.float32, device=x.device)
+    p = _cuda.ptr
+    with torch.cuda.device(x.device):
+        rc = _cuda.lib().unet_conv_dw_tc(p(x), p(g), *x.shape[:3], ci, co, p(part), nblk,
+                                         p(out), _cuda.stream_ptr(x))
+    _cuda.check(rc, name)
+    return out
+
+
 def conv3x3x3_dw(x, g):
     """K5: the f32 (Co, Ci, 3, 3, 3) weight gradient of the 3x3x3
     stride-1 pad-1 conv with input ``x`` (D, H, W, Ci), Ci = 1 for the
     entry conv, and output gradient ``g`` (D, H, W, Co).  Replaces
     unet_studio_tpu/ops/pallas_conv.py ``_dw_kernel`` (in ``conv_s1_p``'s
-    and ``conv_entry_p``'s VJPs)."""
+    and ``conv_entry_p``'s VJPs).  bf16 runs on the tensor cores."""
     if x.device.type == "cpu":
         out = conv_dw_plain(x, g, 3, 1, 1)
     else:
-        out = _launch_dw(x, g, 3, 1, 1, "conv3x3x3_dw")
-        conv3x3x3_dw.launches += 1
+        if x.dtype == torch.bfloat16:
+            out = _launch_dw_tc(x, g, "conv3x3x3_dw")
+        else:
+            out = _launch_dw(x, g, 3, 1, 1, "conv3x3x3_dw")
+        _count(conv3x3x3_dw, x)
     return out.reshape(3, 3, 3, x.shape[-1], g.shape[-1]).permute(4, 3, 0, 1, 2).contiguous()
 
 
@@ -490,7 +518,8 @@ def conv_trans2x_dx(g, w):
 WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x,
             conv3x3x3_dx, conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx, conv_trans2x_dx,
             conv_trans2x_dw)
-TC_WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_dx, conv3x3x3_s2_dx)
+TC_WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_dx, conv3x3x3_dw,
+               conv3x3x3_s2_dx)
 for _fn in WRAPPERS:
     _fn.launches = 0
     _fn.tc_launches = 0

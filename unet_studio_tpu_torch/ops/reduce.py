@@ -12,9 +12,15 @@ modes, with their plain PyTorch twins:
 
 Each wrapper runs its twin when the tensor lies on the CPU and launches
 the CUDA kernel (``csrc/reduce.cu``) when it lies on a card, where it
-raises on what the kernel does not take.  The kernels' atomics change
-the order of the sum from run to run: they agree with the twins to f32
-rounding of a long sum, not bitwise.
+raises on what the kernel does not take.  A launch is one ctypes call and
+one kernel: it writes every value of its output, which the wrapper
+allocates uninitialised (``torch.empty`` launches nothing); the per-block
+partial sums go to one scratch buffer per card, which every launch reuses
+(launches run in stream order, and each writes its partials before its
+last block reads them).  The kernels sum in a fixed order (per block,
+then the blocks in order), so a result is bitwise the same from run to
+run; it agrees with the twin to f32 rounding of a long sum.  ``max`` is
+exact.
 """
 
 from __future__ import annotations
@@ -73,15 +79,31 @@ def _check_volume(x: torch.Tensor, name: str) -> int:
 
 # moments modes of csrc/reduce.cu (rows of the output)
 _SUM, _SUM_SQ, _SQDIFF = 0, 1, 2
+# RED_MAX_BLOCKS of csrc/reduce.cu: the most blocks, so partials, per launch
+_MAX_BLOCKS = 1024
+_scratch: dict[int, torch.Tensor] = {}
+
+
+def _partials(device: torch.device, rows: int, c: int) -> int:
+    """Address of the card's scratch for ``_MAX_BLOCKS`` partial (rows, C)
+    sums, grown when a launch needs more."""
+    n = _MAX_BLOCKS * rows * c
+    buf = _scratch.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = _scratch[device.index] = torch.empty(n, dtype=torch.float32, device=device)
+    return buf.data_ptr()
 
 
 def _moments(x: torch.Tensor, mode: int, mean: torch.Tensor | None, name: str) -> torch.Tensor:
+    """(2, C) for ``_SUM_SQ``, else (C,)."""
     c = _check_volume(x, name)
-    out = torch.zeros((2 if mode == _SUM_SQ else 1, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    rows = 2 if mode == _SUM_SQ else 1
+    out = torch.empty((2, c) if rows == 2 else (c,), dtype=torch.float32, device=x.device)
+    with _cuda.on_device(x):
         rc = _cuda.lib().unet_channel_moments(
-            x.data_ptr(), _cuda.ptr(mean), x.numel() // c, c, mode, out.data_ptr(),
-            _cuda.DTYPE_CODES[x.dtype], _cuda.stream_ptr(x),
+            x.data_ptr(), _cuda.ptr(mean), x.numel() // c, c, mode,
+            _partials(x.device, rows, c), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype],
+            _cuda.stream_ptr(x),
         )
     _cuda.check(rc, name)
     return out
@@ -102,7 +124,7 @@ def channel_sum(x: torch.Tensor) -> torch.Tensor:
     tensor."""
     if x.device.type == "cpu":
         return channel_sum_plain(x)
-    out = _moments(x, _SUM, None, "channel_sum")[0]
+    out = _moments(x, _SUM, None, "channel_sum")
     channel_sum.launches += 1
     return out
 
@@ -117,7 +139,7 @@ def channel_sqdiff(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
     if mean.shape != (c,):
         raise ValueError(f"channel_sqdiff: mean must be ({c},)")
     m = mean.to(device=x.device, dtype=x.dtype).float().contiguous()
-    out = _moments(x, _SQDIFF, m, "channel_sqdiff")[0]
+    out = _moments(x, _SQDIFF, m, "channel_sqdiff")
     channel_sqdiff.launches += 1
     return out
 
@@ -129,10 +151,11 @@ def volume_max(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return volume_max_plain(x)
     _check_dense(x, "volume_max")
-    out = torch.zeros((), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _cuda.lib().unet_volume_max(x.data_ptr(), x.numel(), out.data_ptr(),
-                                         _cuda.DTYPE_CODES[x.dtype], _cuda.stream_ptr(x))
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    with _cuda.on_device(x):
+        rc = _cuda.lib().unet_volume_max(x.data_ptr(), x.numel(), _partials(x.device, 1, 1),
+                                         out.data_ptr(), _cuda.DTYPE_CODES[x.dtype],
+                                         _cuda.stream_ptr(x))
     _cuda.check(rc, "volume_max")
     volume_max.launches += 1
     return out
@@ -154,11 +177,12 @@ def norm_bwd_sums(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     inv = inv.to(device=g.device, dtype=torch.float32).contiguous()
     if mean.shape != (c,) or inv.shape != (c,):
         raise ValueError(f"norm_bwd_sums: mean and inv must be ({c},)")
-    out = torch.zeros((2, c), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
+    out = torch.empty((2, c), dtype=torch.float32, device=g.device)
+    with _cuda.on_device(g):
         rc = _cuda.lib().unet_channel_norm_bwd(
             g.data_ptr(), x.data_ptr(), mean.data_ptr(), inv.data_ptr(), g.numel() // c, c,
-            out.data_ptr(), _cuda.DTYPE_CODES[g.dtype], _cuda.stream_ptr(g),
+            _partials(g.device, 2, c), out.data_ptr(), _cuda.DTYPE_CODES[g.dtype],
+            _cuda.stream_ptr(g),
         )
     _cuda.check(rc, "norm_bwd_sums")
     norm_bwd_sums.launches += 1
