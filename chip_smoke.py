@@ -8,10 +8,12 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
 2. Each kernel wrapper against its plain PyTorch twin on the card at the
    flagship U-Net's shapes (``default_architecture(3)`` on the 192x224x192
    grid), in bf16 and in f32, with its time, the twin's, one PyTorch
-   library call's and the least time the card could take.  bf16 K1 runs
-   on the tensor cores (``csrc/conv_tc.cu``); its uses are also timed at
-   every kernel level (``tc_ms_c*``) and in f32 on the FMA kernels
-   (``f32_fma_ms``).
+   library call's and the least time the card could take.  bf16 K1 and
+   K3 run on the tensor cores (``csrc/conv_tc.cu``); their uses are also
+   timed at every kernel level (``tc_ms_c*``; K3 beside ``bound_ms_c*``)
+   and in f32 on the FMA kernels (``f32_fma_ms``).  Every wrapper that
+   returns stats (K1 s1, the entry, K3) gives the same (y, stats) bits
+   over two calls, in bf16 and in f32.
 3. The full-width forward through the kernels against the all-twin
    forward and the plain unfused forward (f32), and in bf16; its time,
    and its device time by kernel from ``torch.profiler``.
@@ -23,18 +25,22 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    share of ``infer``.
 5. Each backward kernel (K1 as dx, K5-K9, K2 ``norm_bwd``) against its
    twin at the flagship shapes, in bf16 and in f32, with its times and
-   bound as in phase 2 (K1 dx, K5 and K7 in bf16 on the tensor cores;
-   K5 also per level and at the entry, ``tc_ms_c*``, ``tc_ms_entry``,
-   beside its f32 FMA route, ``f32_fma_ms``, and bitwise over two
-   launches).
+   bound as in phase 2 (K1 dx, K5, K6 and K7 in bf16 on the tensor
+   cores; K5 and K6 also per level (and K5 at the entry), ``tc_ms_c*``,
+   ``tc_ms_entry``, beside ``bound_ms_*`` and their f32 FMA route,
+   ``f32_fma_ms``, and bitwise over two launches).
 6. The train step (``build_train_step``) at full width on two items it
    synthesizes from synthetic phantoms (contrast simulation and the
    default augmentation, with rubber stamps): every gradient of an f32
    step through the kernels against the same step through the twins, on
-   the same draws; the bf16 step against the f32 one; three bf16 steps
-   with the loss falling; each kernel's launches in one step (counts set
-   to 0 just before it; every bf16 K1, K5 and K7 launch on the tensor
-   cores, ``tc_launches``), the step's synthesis / forward / backward /
+   the same draws, read twice (a second run of the kernels' step must
+   give the same gradients, bit for bit, so the same reading: the kernels
+   sum in a fixed order, and cuDNN, which serves the C >= 128 levels, is
+   asked for its deterministic algorithms there); the bf16
+   step against the f32 one; three bf16 steps with the loss falling;
+   each kernel's launches in one step (counts set to 0 just before it;
+   every bf16 K1, K3, K5, K6 and K7 launch on the tensor cores,
+   ``tc_launches``), the step's synthesis / forward / backward /
    optimizer split, its device busy share and top kernels, and its peak
    memory.
 7. The augmentation's kernels against their twins at the flagship grid:
@@ -45,13 +51,14 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    Every K2 row (phases 2, 5, 7) also gives ``device_ms``, the kernel's own
    time from ``torch.profiler``, and ``host_ms``, the wrapper's host time
    per call, beside the event-timed ``ms``, and checks that two calls
-   give the same bits.
+   give the same bits; K2's modes launched on two streams at once give
+   the bits of one stream.
    (It runs before phase 6, so that the step's counted run covers these
    kernels.)
 8. The CLI on the card: ``--action train`` on a synthetic BIDS directory
    with one 182x218x182 1 mm template (3 epochs of 2 items, the default
-   augmentation, launches counted around it, every bf16 K1, K5 and K7
-   launch on the tensor cores), its resume at epoch 3,
+   augmentation, launches counted around it, every bf16 K1, K3, K5, K6
+   and K7 launch on the tensor cores), its resume at epoch 3,
    ``--action evaluate`` with the final model; then the convergence
    check of tests/test_convergence.py (validation dice error down by more
    than 40 %, template dice above 0.8).
@@ -190,11 +197,14 @@ def host_ms(fn, reps: int = 20) -> float:
 
 
 def repeatable(fn) -> bool:
-    """Two calls give the same bits (the K2 and dW kernels sum in a fixed
-    order)."""
+    """Two calls give the same bits (K2, the dW kernels and the convs'
+    stats sum in a fixed order); ``fn`` returns a tensor or a tuple."""
     import torch
 
-    return bool(torch.equal(fn(), fn()))
+    a, b = fn(), fn()
+    if isinstance(a, tuple):
+        return all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+    return bool(torch.equal(a, b))
 
 
 def rel_err(got, ref) -> float:
@@ -214,10 +224,12 @@ def stats_err(st, ref, n: int) -> float:
     return max(float((mean - rmean).abs().max()), float((rms - rrms).abs().max())) / scale
 
 
-def profile_forward(fn, top: int = 12, grad: bool = False) -> dict:
+def profile_forward(fn, top: int = 12, grad: bool = False, watch=()) -> dict:
     """Device time by kernel name over one call of ``fn`` (torch.profiler,
     CUPTI), and the device's busy share of the call's wall time.  Under
-    ``no_grad`` unless ``grad``."""
+    ``no_grad`` unless ``grad``.  ``watch``: kernel template names whose
+    device time and launches are summed over all their instances
+    (``watch_ms``), in the list or not."""
     import contextlib
 
     import torch
@@ -240,7 +252,13 @@ def profile_forward(fn, top: int = 12, grad: bool = False) -> dict:
     busy = sum(r[0] for r in rows)
     if busy == 0:
         return {"device_time": "not measured (the profiler saw no device time)"}
+    def base(k):  # "void name<...>(...)" -> "name"
+        return k.split("(")[0].split("<")[0].split()[-1]
+
+    watched = {w: [sum(ms for ms, _, k in rows if base(k) == w),
+                   sum(n for _, n, k in rows if base(k) == w)] for w in watch}
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "busy_share": busy / wall_ms,
+            "watch_ms_launches": watched,
             "top": [{"ms": ms, "count": n, "name": k} for ms, n, k in rows[:top]]}
 
 
@@ -335,13 +353,14 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
            BF16_TENSOR_FLOPS, fma)
 
     def dw_phase(name, wrapper, plain_fn, cases, replaces, lib_call, nbytes, ops, src=bwd_src,
-                 tc=False):
+                 tc=None):
         """dW kernel vs twin on each (A dims, CA, B dims, CB) case; the
-        first case, in bf16, is the timed one.  ``tc``: bf16 runs on the
-        tensor cores, timed per case (``tc_ms_c*``, ``tc_ms_entry``, beside
-        ``bound_ms_*``) and checked bitwise over two launches; f32 runs on
-        the FMA kernel, timed per case too (``f32_fma_ms_*``; the first
-        case's is the row's ``f32_fma_ms``)."""
+        first case, in bf16, is the timed one.  ``tc``: the tensor-core
+        kernel's name; bf16 runs on it, timed per case (``tc_ms_c*``,
+        ``tc_ms_entry``, beside ``bound_ms_*``, and its own device time
+        ``device_ms_*``, the ordered reduction apart) and checked bitwise
+        over two launches; f32 runs on the FMA kernel, timed per case too
+        (``f32_fma_ms_*``; the first case's is the row's ``f32_fma_ms``)."""
         errs, fma = {}, {}
         for i, (a_dims, ca, b_dims, cb) in enumerate(cases):
             for dtype, _, tag in dtypes:
@@ -358,9 +377,10 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
                     errs[key + lvl] = timed_ms(lambda: wrapper(x, g))
                 if tc and dtype == torch.bfloat16:
                     require(repeatable(lambda: wrapper(x, g)), f"{name} {ca}->{cb} repeat")
-                    n = x.numel() // ca
-                    errs["bound_ms_" + lvl] = max(2 * (ca + cb) * n / HBM_BYTES_PER_S,
-                                                  2 * 27 * ca * cb * n / BF16_TENSOR_FLOPS) * 1e3
+                    errs["device_ms_" + lvl] = device_ms(lambda: wrapper(x, g), tc)
+                    nx, ng = x.numel() // ca, g.numel() // cb
+                    errs["bound_ms_" + lvl] = max(2 * (ca * nx + cb * ng) / HBM_BYTES_PER_S,
+                                                  2 * 27 * ca * cb * ng / BF16_TENSOR_FLOPS) * 1e3
                 if i == 0 and dtype == torch.bfloat16:
                     errs["bf16_abs"] = abs_err(got, ref)
                     timing = (timed_ms(lambda: wrapper(x, g)), timed_ms(lambda: plain_fn(x, g)),
@@ -389,14 +409,15 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
              lambda x, g: lib_bwd(g, x, weight((16, 16, 3, 3, 3), x), 1, 1, False,
                                   [False, True, False]),
              4 * 16 * nvox(S0), 2 * 27 * 16 * 16 * nvox(S0),
-             src="unet_studio_tpu_torch/csrc/conv_tc.cu", tc=True)
+             src="unet_studio_tpu_torch/csrc/conv_tc.cu", tc="tc_kernel")
     # K6: stride 2, C -> 2C (64 -> 128 included)
     dw_phase("conv3x3x3_s2_dw", K.conv3x3x3_s2_dw, dw_plain(3, 2, 1),
              ((S0, 16, S1, 32), (S1, 32, S2, 64), (S2, 64, S3, 128)),
              "unet_studio_tpu/ops/packed.py:897",
              lambda x, g: lib_bwd(g, x, weight((32, 16, 3, 3, 3), x), 2, 1, False,
                                   [False, True, False]),
-             2 * 16 * nvox(S0) + 2 * 32 * nvox(S1), 2 * 27 * 16 * 32 * nvox(S1))
+             2 * 16 * nvox(S0) + 2 * 32 * nvox(S1), 2 * 27 * 16 * 32 * nvox(S1),
+             src="unet_studio_tpu_torch/csrc/conv_tc.cu", tc="dw_s2_tc_kernel")
     # K9: the transposed conv's dW, x at level l+1 (2C), g at level l (C):
     # the dW kernel with A = g and B = x
     dw_phase("conv_trans2x_dw", K.conv_trans2x_dw, dw_plain(2, 2, 0, swap=True),
@@ -531,19 +552,33 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     step16, valid16 = build_train_step(model, TrainParam(batch_size=2, options=opt), device=dev)
 
     # (a) f32: the kernels' step against the twins' step, the synthesis's
-    # warp kernels against their twins included
+    # warp kernels against their twins included.  The levels with C >= 128
+    # run cuDNN on both sides, whose default backward algorithms sum with
+    # atomics; asked for deterministic ones here, the reading depends only
+    # on the inputs, and a second run must repeat it
+    torch.backends.cudnn.deterministic = True
     g_k, m_k, loss_k = step32.grads(images, labels, seeds=seeds)
     g_t, m_t, loss_t = step32.grads(images, labels, seeds=seeds, plain=True)
     l2_a, worst_a, name_a = grad_errs(g_k, g_t)
     loss_a = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
-    del g_t
+    # the reading again from a second run of the kernels' step: the same
+    # number, since every kernel on the path sums in a fixed order
+    g_k2, _, loss_k2 = step32.grads(images, labels, seeds=seeds)
+    l2_again = grad_errs(g_k2, g_t)[0]
+    same_grads = all(bool(torch.equal(g_k[k], g_k2[k])) for k in g_k)
+    del g_t, g_k2
+    torch.backends.cudnn.deterministic = False
+    log(f"f32 step parity reading (gradient L2 vs twins): {l2_a!r}, again {l2_again!r}; "
+        f"gradients bitwise equal: {same_grads}")
     # (b) bf16 against f32, both through the kernels
     g_b, m_b, loss_b = step16.grads(images, labels, seeds=seeds)
     l2_b, worst_b, name_b = grad_errs(g_b, g_k)
     loss_rel_b = abs(float(loss_b) - float(loss_k)) / abs(float(loss_k))
     del g_k, g_b
     parity = {"f32_kernels_vs_twins": {"grad_l2": l2_a, "grad_worst": worst_a,
-                                       "worst_tensor": name_a, "loss_rel": loss_a},
+                                       "worst_tensor": name_a, "loss_rel": loss_a,
+                                       "grad_l2_second_run": l2_again,
+                                       "grads_bitwise_equal": same_grads},
               "bf16_vs_f32": {"grad_l2": l2_b, "grad_worst": worst_b, "worst_tensor": name_b,
                               "loss_rel": loss_rel_b},
               "loss_f32": float(loss_k), "loss_bf16": float(loss_b), "item_seeds": seeds}
@@ -552,6 +587,8 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
             f"f32 train step, kernels vs twins: {parity['f32_kernels_vs_twins']}")
     require(loss_rel_b < STEP_BF16_LOSS_TOL and l2_b < STEP_BF16_GRAD_TOL,
             f"bf16 train step vs f32: {parity['bf16_vs_f32']}")
+    require(l2_again == l2_a and same_grads and float(loss_k2) == float(loss_k),
+            f"the f32 step's parity reading changed between two runs: {l2_a!r}, {l2_again!r}")
     torch.cuda.empty_cache()
 
     # (c, d) three bf16 steps at lr 1e-2 on the same items; the first is
@@ -581,7 +618,7 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     log("tensor-core launches in the bf16 step: " + json.dumps(tc))
     require(all(v > 0 for v in tc.values())
             and all(tc[k] == records[k][0]["launches"] for k in tc),
-            "a bf16 K1, K5 or K7 launch of the train step missed the tensor cores")
+            "a bf16 K1, K3, K5, K6 or K7 launch of the train step missed the tensor cores")
     losses = [float(loss1)]
     step_profile = {}
 
@@ -590,7 +627,10 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
         opt_state, _, loss = step16(opt_state, images, labels, None, 1e-2, seeds=seeds)
         losses.append(float(loss))
 
-    step_profile = profile_forward(second, top=30, grad=True)
+    step_profile = profile_forward(second, top=30, grad=True, watch=(
+        "s2_tc_kernel", "dw_s2_tc_kernel", "conv3_tc_kernel", "entry_tc_kernel", "dw_tc_kernel",
+        "dw_entry_tc_kernel", "s2dx_tc_kernel", "dw_reduce_kernel", "channel_reduce_kernel",
+        "trans2x_kernel", "trans2x_dx_kernel", "conv_dw_kernel", "warp_kernel", "max_kernel"))
     torch.cuda.synchronize()
     t = time.perf_counter()
     opt_state, _, loss3 = step16(opt_state, images, labels, None, 1e-2, seeds=seeds)
@@ -741,6 +781,38 @@ def phase7_augmentation_kernels(record, rnd, dev, card: str, shape=(192, 224, 19
         record(name, red_src, "unet_studio_tpu/ops/packed.py:1360" if name == "channel_sum"
                else "unet_studio_tpu/ops/packed.py:1378", wrapper, errs, *timing, F32_FLOPS)
 
+    # K2 on two streams at once: each stream's results are the bits of the
+    # same calls on one stream (every launch has its stream's ticket and
+    # partials); level 0 in bf16, the image's max
+    x = rnd((*shape, 16), torch.bfloat16) + 0.25
+    gx = (0.5 * x.float() + rnd((*shape, 16)) + 0.25).to(torch.bfloat16)
+    st = R.channel_sum_sq_plain(x)
+    mean = st[0] / n
+    inv = torch.rsqrt((st[1] / n - mean * mean).clamp_min(0) + 1e-5)
+
+    def k2_calls(i):
+        v = x if i == 0 else gx
+        return [R.channel_sum_sq(v), R.channel_sum(v), R.channel_sqdiff(v, mean),
+                R.norm_bwd_sums(gx if i == 0 else x, v, mean, inv), R.volume_max(img)]
+
+    want = [k2_calls(i) for i in range(2)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    for s_ in streams:
+        s_.wait_stream(torch.cuda.current_stream(dev))
+    got = [[], []]
+    for _ in range(4):  # interleaved, so the two streams' launches overlap
+        for i, s_ in enumerate(streams):
+            with torch.cuda.stream(s_):
+                got[i].append(k2_calls(i))
+    torch.cuda.synchronize()
+    mismatch = sum(not torch.equal(a, b) for i in range(2) for calls in got[i]
+                   for a, b in zip(calls, want[i]))
+    print(json.dumps({"k2_two_streams": {"calls_per_stream": 4 * len(want[0]),
+                                         "mismatches": int(mismatch)}}), flush=True)
+    require(mismatch == 0, f"K2 on two streams: {mismatch} results differ from one stream's")
+    del x, gx, got, want
+
     # one augmentation and one contrast simulation of an item, host clock
     def wall_ms(fn, reps=3):
         fn()
@@ -829,7 +901,7 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
         if w in K.TC_WRAPPERS:
             rec["tc_launches_cli_train"] = w.tc_launches
     require(all(w.tc_launches == w.launches for _, w in records.values() if w in K.TC_WRAPPERS),
-            "a bf16 K1, K5 or K7 launch of the CLI train run missed the tensor cores")
+            "a bf16 K1, K3, K5, K6 or K7 launch of the CLI train run missed the tensor cores")
     rc, out, resume_s = run_cli(["--action", "train", "--model", model + ".final.nz",
                                  "--bids", bids, "--batch_size", "2", "--epoch", "4",
                                  "--device", dev])
@@ -926,7 +998,11 @@ def main() -> int:
     log(f"kernels built/loaded in {time.perf_counter() - t:.1f}s "
         f"(nvcc seconds: {_cuda.last_build_seconds})")
     # registers, shared memory and spills of the tensor-core kernels
-    print(json.dumps({"ptxas": _cuda.ptxas_report()}), flush=True)
+    report = _cuda.ptxas_report()
+    print(json.dumps({"ptxas": report}), flush=True)
+    for k in report:
+        if "s2_tc_kernel" in k["kernel"]:  # K3 and K6
+            log(f"ptxas {k['kernel']}: {'; '.join(k['info'])}")
 
     # ---- 2. kernels vs twins at the flagship shapes -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -980,6 +1056,8 @@ def main() -> int:
             yr, sr = K.conv3_plain([x], [p], w, b, 1, want_stats=True)
             e, es = rel_err(y, yr), stats_err(st, sr, nvox(dims))
             require(e < tol and es < STATS_TOL, f"conv3x3x3_s1 C={c} {tag}: err {e} stats {es}")
+            require(repeatable(lambda: K.conv3x3x3_s1(x, w, b, prologue=p, want_stats=True)),
+                    f"conv3x3x3_s1 C={c} {tag}: (y, stats) differ over two calls")
             errs[f"{tag}_rel_c{c}"] = e
             if dtype == torch.bfloat16:
                 errs[f"tc_ms_c{c}"] = timed_ms(
@@ -1011,6 +1089,8 @@ def main() -> int:
         yr, sr = K.conv3_plain([x], [None], w, b, 1, want_stats=True)
         e, es = rel_err(y, yr), stats_err(st, sr, nvox(S0))
         require(e < tol and es < STATS_TOL, f"conv3x3x3_entry {tag}: err {e} stats {es}")
+        require(repeatable(lambda: K.conv3x3x3_entry(x, w, b, want_stats=True)),
+                f"conv3x3x3_entry {tag}: (y, stats) differ over two calls")
         errs[f"{tag}_rel"] = e
         if dtype == torch.bfloat16:
             errs["bf16_abs"] = abs_err(y, yr)
@@ -1060,7 +1140,8 @@ def main() -> int:
     record("conv3x3x3_dual", tc_src, "unet_studio_tpu/ops/pallas_conv.py:355",
            K.conv3x3x3_dual, errs, *timing, BF16_TENSOR_FLOPS, fma)
 
-    # K3, C -> 2C stride 2 (64 -> 128 included)
+    # K3, C -> 2C stride 2 (64 -> 128 included); bf16 on the tensor cores,
+    # each level timed beside its bound, f32 on the FMA kernel
     errs = {}
     for dims, c in ((S0, 16), (S1, 32), (S2, 64)):
         for dtype, tol, tag in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
@@ -1069,20 +1150,35 @@ def main() -> int:
             yr, sr = K.conv3_plain([x], [p], w, b, 2, want_stats=True)
             e, es = rel_err(y, yr), stats_err(st, sr, nvox(dims) // 8)
             require(e < tol and es < STATS_TOL, f"conv3x3x3_s2 C={c} {tag}: err {e} stats {es}")
+            require(repeatable(lambda: K.conv3x3x3_s2(x, w, b, prologue=p, want_stats=True)),
+                    f"conv3x3x3_s2 C={c} {tag}: (y, stats) differ over two calls")
             errs[f"{tag}_rel_c{c}"] = e
+            errs[f"{tag}_stats_c{c}"] = es
+            n_out = nvox(dims) // 8
+            nbytes, ops = 2 * c * nvox(dims) + 2 * 2 * c * n_out, 2 * 27 * c * 2 * c * n_out
+            if dtype == torch.bfloat16:
+                errs[f"tc_ms_c{c}"] = timed_ms(
+                    lambda: K.conv3x3x3_s2(x, w, b, prologue=p, want_stats=True))
+                # the kernel's own time, without the wrapper's host time
+                errs[f"device_ms_c{c}"] = device_ms(
+                    lambda: K.conv3x3x3_s2(x, w, b, prologue=p, want_stats=True), "s2_tc_kernel")
+                errs[f"bound_ms_c{c}"] = max(nbytes / HBM_BYTES_PER_S,
+                                             ops / BF16_TENSOR_FLOPS) * 1e3
             if c == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(y, yr)
                 ms = timed_ms(lambda: K.conv3x3x3_s2(x, w, b, prologue=p, want_stats=True))
+                x32 = x.float()
+                fma = {"f32_fma_ms": timed_ms(
+                    lambda: K.conv3x3x3_s2(x32, w, b, prologue=p, want_stats=True))}
+                del x32
                 plain_ms = timed_ms(lambda: K.conv3_plain([x], [p], w, b, 2, want_stats=True))
                 xl = K.ncdhw(x)
                 lib_ms = timed_ms(lambda: torch.nn.functional.conv3d(
                     xl, w.to(dtype), b.to(dtype), stride=2, padding=1))
-                n_out = nvox(dims) // 8
-                timing = (ms, plain_ms, lib_ms, 2 * c * nvox(dims) + 2 * 2 * c * n_out,
-                          2 * 27 * c * 2 * c * n_out)
+                timing = (ms, plain_ms, lib_ms, nbytes, ops)
             del x, y, yr
-    record("conv3x3x3_s2", conv_src, "unet_studio_tpu/ops/packed.py:227",
-           K.conv3x3x3_s2, errs, *timing, BF16_TENSOR_FLOPS)
+    record("conv3x3x3_s2", tc_src, "unet_studio_tpu/ops/packed.py:227",
+           K.conv3x3x3_s2, errs, *timing, BF16_TENSOR_FLOPS, fma)
 
     # K4, 2C -> C transposed conv
     errs = {}
@@ -1171,7 +1267,9 @@ def main() -> int:
     log(f"forward_ms (bf16, level 0, kernel path): {forward_ms:.3f}")
     print(json.dumps({"forward_profile": profile_forward(
         lambda: U.forward_fused(spec, params, x, compute_dtype=torch.bfloat16,
-                                level0_only=True))}), flush=True)
+                                level0_only=True),
+        watch=("s2_tc_kernel", "conv3_tc_kernel", "entry_tc_kernel", "trans2x_kernel",
+               "channel_reduce_kernel", "dw_reduce_kernel"))}), flush=True)
     del ref, kb16, x
     torch.cuda.empty_cache()
 
@@ -1226,7 +1324,8 @@ def main() -> int:
     require(all(r["launches_evaluate"] > 0 for r, _ in records.values()),
             "a kernel of the evaluate path was not launched")
     require(all(r["tc_launches_evaluate"] == r["launches_evaluate"] for r, w in records.values()
-                if w in K.TC_WRAPPERS), "a bf16 K1 of the evaluate path left the tensor cores")
+                if w in K.TC_WRAPPERS),
+            "a bf16 K1 or K3 of the evaluate path left the tensor cores")
     out = read_nifti(src + ".result.nii.gz")
     require(out.data.shape == native, f"result shape {out.data.shape}")
     labels = set(np.unique(out.data).tolist())

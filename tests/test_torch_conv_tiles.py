@@ -2,7 +2,9 @@
 (``unet_studio_tpu_torch/ops/tc_layout.py``), on the CPU in f32: what the
 wrappers build before a launch, read back as ``mma.m16n8k16`` reads it,
 through a plain im2col GEMM in the kernels' K order, against the convs'
-twins.  The kernels themselves run in tests/test_torch_cuda_kernels.py.
+twins; and K3's tile map (its parity-split halo, lane-level ldmatrix,
+stats fold) replayed as the kernel runs it.  The kernels themselves run in
+tests/test_torch_cuda_kernels.py.
 """
 
 import numpy as np
@@ -145,7 +147,9 @@ def test_s2dx_class_gemms_equal_the_twin(ci, co, half):
                                           ("k1_dual", (32, 64, 3, 3, 3)),
                                           ("entry", (16, 1, 3, 3, 3)),
                                           ("s2dx", (32, 16, 3, 3, 3)),
-                                          ("s2dx", (128, 64, 3, 3, 3))])
+                                          ("s2dx", (128, 64, 3, 3, 3)),
+                                          ("k3", (32, 16, 3, 3, 3)),
+                                          ("k3", (128, 64, 3, 3, 3))])
 def test_pack_weights_is_one_gather_of_pack_b(layout, shape):
     """The wrappers' cached-index gather equals building B and packing it,
     bit for bit, on a strided view too (dx packs flip_transpose(w))."""
@@ -154,3 +158,151 @@ def test_pack_weights_is_one_gather_of_pack_b(layout, shape):
     if layout == "k1":
         wt = K.flip_transpose(w)
         assert torch.equal(L.pack_weights(wt, layout), L.pack_b(L.k1_weight_matrix(wt)))
+
+
+# ---------------------------------------------------------------------------
+# K3 (s2_tc_kernel): the stride-2 GEMM through the parity-split halo
+# ---------------------------------------------------------------------------
+
+LANE = torch.arange(32)
+
+
+def k3_halo(xp: torch.Tensor, z0: int, y0: int, x0: int, ci: int) -> torch.Tensor:
+    """(HV, Ci) halo of the K3 tile at output (z0, y0, x0), as the kernel
+    stages it: row (hz, hy), slot sl holds input (2 z0 - 1 + hz, 2 y0 - 1 +
+    hy, 2 x0 - 1 + s2_slot_x(sl)); ``xp`` is the input after its prologue,
+    zero-padded by one voxel before and enough after."""
+    tz, ty, _ = L.k3_tile(ci)
+    hz, hy, hx = L.s2_halo(tz, ty)
+    xs = torch.tensor([L.s2_slot_x(sl) for sl in range(hx)])
+    rows = xp[2 * z0:2 * z0 + hz, 2 * y0:2 * y0 + hy]  # xp index = input index + 1
+    return rows[:, :, 2 * x0 + xs].reshape(-1, xp.shape[-1])
+
+
+def ldsm_a(phys: torch.Tensor, row: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """ldmatrix.x4 (not transposed) of one 16 x 16 A tile: lane l hands row
+    ``row[l]``, logical chunk ``chunk[l]`` (read at its swizzled place);
+    matrix j is lanes 8j..8j+7; a0..a3 = (rows 0-7, k 0-7), (rows 8-15, k
+    0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)."""
+    nc = phys.shape[1]
+    lines = phys[row, L.swizzle(nc, row, chunk)]  # (32, 8)
+    m = lines.reshape(4, 8, 8)
+    return torch.cat([torch.cat([m[0], m[2]], 1), torch.cat([m[1], m[3]], 1)], 0)
+
+
+def replay_k3(x, prologue, w, b, nblk: int = 3):
+    """K3's output and stats as s2_tc_kernel computes them: per tile the
+    parity-split halo stored swizzled, each row block's A gathered lane by
+    lane at every (tap, chunk) k-step, B from ``pack_weights(w, "k3")`` in
+    fragment order, per channel slice; the stats summed per warp over its
+    valid rows in tile order, the warps in warp order, the blocks in
+    order.  Returns (y f32, stats, per-block partial rows)."""
+    d, h, wd, ci = x.shape
+    co = w.shape[0]
+    nb = L.k3_nb(co)
+    tz, ty, tx = L.k3_tile(ci)
+    mt_n = tz * ty // L.TC_WARPS
+    od, oh, ow = d // 2, h // 2, wd // 2
+    xp = F.pad(K.apply_prologue(x, prologue), (0, 0, 1, 2 * tx + 1, 1, 2 * ty + 1, 1, 2 * tz + 1))
+    bm = fragment_matrix(L.pack_weights(w, "k3"))
+    ksteps = 27 * (ci // 16)
+    y = torch.zeros((od + tz, oh + ty, ow + tx, co))
+    tiles = L.k3_tiles((od, oh, ow), ci)
+    part = torch.zeros((nblk, 2, co))
+    row16 = LANE & 15
+    for blk in range(nblk):
+        red = torch.zeros((L.TC_WARPS, 2, co))
+        for z0, y0, x0 in tiles[blk::nblk]:
+            phys = store_swizzled(k3_halo(xp, z0, y0, x0, ci).reshape(-1, ci // 8, 8))
+            for warp in range(L.TC_WARPS):
+                for mt in range(mt_n):
+                    r = warp * mt_n + mt
+                    acc = b.clone().expand(16, co).clone()
+                    for ks in range(ksteps):
+                        tap, chunk = divmod(ks, ci // 16)
+                        rows = L.s2_row_base(r, tz, ty) + L.s2_tap_offset(tap, tz, ty) + row16
+                        a = ldsm_a(phys, rows, chunk * 2 + (LANE >> 4))
+                        for s in range(co // nb):
+                            bs = bm[(s * ksteps + ks) * 16:(s * ksteps + ks + 1) * 16]
+                            acc[:, s * nb:(s + 1) * nb] += a @ bs
+                    oz, oy = z0 + r // ty, y0 + r % ty
+                    y[oz, oy, x0:x0 + 16] = acc
+                    ok = (oz < od) & (oy < oh) & (x0 + torch.arange(16) < ow)
+                    v = acc[ok]
+                    red[warp, 0] += v.sum(0)
+                    red[warp, 1] += (v * v).sum(0)
+        part[blk] = red[0] + red[1] + red[2] + red[3]  # warp order
+    stats = part[0].clone()
+    for blk in range(1, nblk):
+        stats += part[blk]
+    return y[:od, :oh, :ow], stats, part
+
+
+def store_swizzled(rows: torch.Tensor) -> torch.Tensor:
+    """(V, nc, 8) logical chunks -> shared memory as the kernel writes it:
+    logical chunk c of row v at physical chunk swizzle(nc, v, c)."""
+    v_n, nc, _ = rows.shape
+    phys = torch.full_like(rows, float("nan"))
+    v = torch.arange(v_n)[:, None]
+    c = torch.arange(nc)[None, :]
+    phys[v, L.swizzle(nc, v, c)] = rows
+    return phys
+
+
+@pytest.mark.parametrize("ci,co,dims,act", [(16, 32, (4, 10, 34), "leaky_relu"),
+                                            (16, 32, (6, 8, 32), None),
+                                            (32, 64, (2, 6, 6), "relu"),
+                                            (64, 128, (4, 4, 18), "leaky_relu")])
+def test_k3_gemm_through_the_map_equals_the_twin(ci, co, dims, act):
+    """s2_tc_kernel's GEMM and stats through the tc_layout map (ragged
+    tiles, prologue, Co = 128 in two slices) equal conv3_plain at stride 2."""
+    rng = np.random.default_rng(ci + sum(dims))
+    x, w, b = _t(rng, (*dims, ci)), _t(rng, (co, ci, 3, 3, 3), 0.1), _t(rng, co)
+    pro = None if act is None else (_t(rng, ci, 0.3) + 1.0, _t(rng, ci, 0.3), act)
+    y, stats, part = replay_k3(x, pro, w, b)
+    ref, ref_stats = K.conv3_plain([x], [pro], w, b, 2, want_stats=True)
+    assert y.shape == ref.shape == (dims[0] // 2, dims[1] // 2, dims[2] // 2, co)
+    assert _rel(y, ref) < TOL
+    assert _rel(stats, ref_stats) < TOL
+
+
+def test_k3_stats_fold_equals_the_twin():
+    """The block-ordered fold of the stats partials (any number of
+    blocks; blocks without a tile give zero rows) equals _stats of the
+    twin's f32 result, and each block's row is the sum over its tiles."""
+    rng = np.random.default_rng(7)
+    x, w, b = _t(rng, (6, 10, 36, 16)), _t(rng, (32, 16, 3, 3, 3), 0.1), _t(rng, 32)
+    ref, ref_stats = K.conv3_plain([x], [None], w, b, 2, want_stats=True)
+    n_tiles = len(L.k3_tiles(ref.shape[:3], 16))
+    for nblk in (1, 4, n_tiles + 2):
+        _, stats, part = replay_k3(x, None, w, b, nblk)
+        assert _rel(stats, ref_stats) < TOL
+        assert not part[n_tiles:].any()
+
+
+@pytest.mark.parametrize("ci", [16, 32, 64])
+def test_k3_ldmatrix_phases_hit_distinct_bank_groups(ci):
+    """Each 8-lane phase of every A ldmatrix of s2_tc_kernel (every row
+    block, tap and chunk) reads 8 distinct 16-byte bank groups: the
+    parity-split halo makes a tap's rows consecutive slots."""
+    tz, ty, _ = L.k3_tile(ci)
+    nc = ci // 8
+    row16 = LANE & 15
+    for r in range(tz * ty):
+        for tap in range(27):
+            rows = L.s2_row_base(r, tz, ty) + L.s2_tap_offset(tap, tz, ty) + row16
+            for chunk in range(ci // 16):
+                c = chunk * 2 + (LANE >> 4)
+                bank = ((rows * nc + L.swizzle(nc, rows, c)) % 8).tolist()
+                for phase in range(4):
+                    assert len(set(bank[8 * phase:8 * phase + 8])) == 8
+
+
+def test_k3_halo_slots():
+    """Slot m reads the even input x 2(x0 + m) (tap dx = 1); slots 16 + m
+    and 17 + m the odd 2(x0 + m) - 1 and + 1 (taps 0 and 2): every output
+    x of the tile reads input 2(x0 + m) + dx - 1 at tap dx."""
+    for m in range(16):
+        for dx in range(3):
+            assert L.s2_slot_x(L.s2_slot(dx) + m) - 1 == 2 * m + dx - 1
+    assert sorted(L.s2_slot_x(sl) for sl in range(L.S2_HX)) == list(range(L.S2_HX))

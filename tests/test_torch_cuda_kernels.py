@@ -1,8 +1,10 @@
 """The port's CUDA kernels (K1-K12, all of K2's modes) against their plain
-PyTorch twins on the card, at small shapes with odd sizes; bf16 K1, K5
-and K7 run on the tensor-core route (``test_tc_*`` add whole-tile shapes);
-K2's modes are bitwise repeatable and need no zeroed output.  These tests need an NVIDIA
-GPU and skip without one; run them there with
+PyTorch twins on the card, at small shapes with odd sizes; bf16 K1, K3,
+K5, K6 and K7 run on the tensor-core route (``test_tc_*`` add whole-tile
+shapes); K2's modes, the weight gradients and the convs' stats are
+bitwise repeatable, K2 on two streams at once too, and need no zeroed
+output.  These tests need an NVIDIA GPU and skip without one; run them
+there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -328,6 +330,16 @@ def test_tc_rejects(dev):
     with pytest.raises(ValueError):
         K.conv3x3x3_s2_dx(torch.zeros((2, 2, 2, 16), device=dev, dtype=bf),
                           torch.zeros(16, 16, 3, 3, 3, device=dev))
+    # K3 and K6 off TC_S2 (no FMA fallback in bf16)
+    n3, n6 = K.conv3x3x3_s2.launches, K.conv3x3x3_s2_dw.launches
+    for ci, co in ((16, 16), (32, 32), (16, 64), (64, 64), (128, 256)):
+        xs = torch.zeros((4, 4, 4, ci), device=dev, dtype=bf)
+        with pytest.raises(ValueError):
+            K.conv3x3x3_s2(xs, torch.zeros(co, ci, 3, 3, 3, device=dev),
+                           torch.zeros(co, device=dev))
+        with pytest.raises(ValueError):
+            K.conv3x3x3_s2_dw(xs, torch.zeros((2, 2, 2, co), device=dev, dtype=bf))
+    assert (K.conv3x3x3_s2.launches, K.conv3x3x3_s2_dw.launches) == (n3, n6)
     n0 = K.conv3x3x3_s1.tc_launches
     K.conv3x3x3_s1(x.float(), torch.zeros(32, 16, 3, 3, 3, device=dev), torch.zeros(32, device=dev))
     assert K.conv3x3x3_s1.tc_launches == n0
@@ -501,3 +513,104 @@ def test_volume_max_repeatable(dev, dtype, shape):
     x = _t(rng, shape, dev, dtype)
     assert float(_poisoned(lambda: R.volume_max(x), 1, 1)) == float(R.volume_max_plain(x))
     assert float(_poisoned(lambda: R.volume_max(-x.abs() - 1), 1, 1)) == 0.0
+
+
+@pytest.mark.parametrize("ci,co", [(16, 32), (32, 64), (64, 128)])
+@pytest.mark.parametrize("act", [None, "relu", "leaky_relu"])
+@pytest.mark.parametrize("dims", [(6, 10, 14), (4, 8, 32), (2, 18, 66)])
+def test_tc_s2(dev, ci, co, act, dims):
+    """bf16 K3 on the tensor cores (Co = 128 in two channel slices):
+    ragged and whole tiles, with and without the prologue and the stats;
+    tc_launches counts."""
+    rng = np.random.default_rng(ci + len(act or "") + sum(dims))
+    x = _t(rng, (*dims, ci), dev, torch.bfloat16)
+    w, b = _t(rng, (co, ci, 3, 3, 3), dev, scale=0.1), _t(rng, co, dev)
+    pro = None if act is None else _pro(rng, ci, dev, act)
+    n0, t0 = K.conv3x3x3_s2.launches, K.conv3x3x3_s2.tc_launches
+    y, st = K.conv3x3x3_s2(x, w, b, prologue=pro, want_stats=True)
+    yr, sr = K.conv3_plain([x], [pro], w, b, 2, want_stats=True)
+    assert y.shape == (dims[0] // 2, dims[1] // 2, dims[2] // 2, co)
+    assert _rel(y, yr) < BF16_TOL and _rel(st, sr) < 1e-4
+    assert _rel(K.conv3x3x3_s2(x, w, b, prologue=pro), yr) < BF16_TOL
+    assert (K.conv3x3x3_s2.launches, K.conv3x3x3_s2.tc_launches) == (n0 + 2, t0 + 2)
+
+
+@pytest.mark.parametrize("ci,co", [(16, 32), (32, 64), (64, 128)])
+@pytest.mark.parametrize("half", [(3, 5, 7), (2, 6, 17), (1, 4, 16), (3, 10, 20)])
+def test_tc_s2_dw(dev, ci, co, half):
+    """bf16 K6 on the tensor cores against the per-tap matmul twin, ragged
+    and whole tiles and tiles whose halo lies inside the volume (3, 10,
+    20); two launches give the same bits; tc_launches counts."""
+    rng = np.random.default_rng(ci + co + sum(half))
+    x = _t(rng, (2 * half[0], 2 * half[1], 2 * half[2], ci), dev, torch.bfloat16)
+    g = _t(rng, (*half, co), dev, torch.bfloat16)
+    n0, t0 = K.conv3x3x3_s2_dw.launches, K.conv3x3x3_s2_dw.tc_launches
+    got = K.conv3x3x3_s2_dw(x, g)
+    ref = K.conv_dw_plain(x, g, 3, 2, 1).reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2)
+    assert got.dtype == torch.float32 and got.shape == (co, ci, 3, 3, 3)
+    assert _rel(got, ref) < SUM_TOL
+    assert torch.equal(got, K.conv3x3x3_s2_dw(x, g))
+    assert (K.conv3x3x3_s2_dw.launches, K.conv3x3x3_s2_dw.tc_launches) == (n0 + 2, t0 + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,c", [("s1", 16), ("s1", 32), ("s1", 64), ("entry", 16),
+                                    ("entry", 64), ("s2", 16), ("s2", 64)])
+def test_conv_stats_repeatable(dev, dtype, kind, c):
+    """(y, stats) of K1 s1, K1 entry and K3 are the same bits over two
+    calls (the stats fold in a fixed order, no atomics), the second into
+    freed NaN-filled memory, and agree with the twin's stats."""
+    rng = np.random.default_rng(c + len(kind))
+    dims = (6, 20, 36) if kind != "s2" else (8, 20, 36)
+    ci = 1 if kind == "entry" else c
+    co = 2 * c if kind == "s2" else c
+    x = _t(rng, (*dims, ci), dev, dtype) + 0.25
+    w, b = _t(rng, (co, ci, 3, 3, 3), dev, scale=0.1), _t(rng, co, dev)
+    pro = None if kind == "entry" else _pro(rng, ci, dev, "leaky_relu")
+    if kind == "s1":
+        fn = lambda: K.conv3x3x3_s1(x, w, b, prologue=pro, want_stats=True)  # noqa: E731
+    elif kind == "entry":
+        fn = lambda: K.conv3x3x3_entry(x, w, b, want_stats=True)  # noqa: E731
+    else:
+        fn = lambda: K.conv3x3x3_s2(x, w, b, prologue=pro, want_stats=True)  # noqa: E731
+    y1, s1 = fn()
+    junk = torch.full((1 << 20,), float("nan"), device=dev)
+    del junk
+    y2, s2 = fn()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    _, sr = K.conv3_plain([x], [pro], w, b, 2 if kind == "s2" else 1, want_stats=True)
+    assert _rel(s1, sr) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_two_streams(dev, dtype):
+    """K2 launched on two streams at once (every mode, many launches each,
+    no sync between them) gives, on each stream, the bits of the same
+    calls on one stream: each stream has its own ticket and partials."""
+    rng = np.random.default_rng(11)
+    xs = [_t(rng, (24, 56, 48, 16), dev, dtype) + 0.5 for _ in range(2)]
+    gs = [(0.5 * x.float() + _t(rng, tuple(x.shape), dev) + 0.25).to(dtype) for x in xs]
+    stats = [channel_sum_sq_plain(x) for x in xs]
+    n = xs[0].numel() // 16
+    means = [st[0] / n for st in stats]
+    invs = [torch.rsqrt((st[1] / n - m * m).clamp_min(0) + 1e-5) for st, m in zip(stats, means)]
+
+    def calls(i):
+        x, g, m, iv = xs[i], gs[i], means[i], invs[i]
+        return [R.channel_sum_sq(x), R.channel_sum(x), R.channel_sqdiff(x, m),
+                R.norm_bwd_sums(g, x, m, iv), R.volume_max(x)]
+
+    want = [calls(i) for i in range(2)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    got = [[], []]
+    for _ in range(8):  # interleaved, so the two streams' launches overlap
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(calls(i))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for rep in got[i]:
+            assert all(torch.equal(a, b) for a, b in zip(rep, want[i]))

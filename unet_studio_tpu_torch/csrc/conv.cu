@@ -1,26 +1,29 @@
 // Direct 3-D convolution kernels of the inference forward, channels-last
-// (D, H, W, C), f32 accumulation, bf16 or f32 input and output.
+// (D, H, W, C), f32 accumulation.
 //
 // K1 conv3x3x3 stride 1 (replaces unet_studio_tpu/ops/pallas_conv.py:355
 //    _fwd_kernel, and ops/packed.py:736 conv_entry, which reuses it for
 //    Ci=1) and
 // K3 conv3x3x3 stride 2 (replaces unet_studio_tpu/ops/packed.py:227
-//    _s2_fwd_kernel) share one template, conv3_kernel.  It takes:
+//    _s2_fwd_kernel) share one template, conv3_kernel, here in f32 only:
+//    bf16 K1 and K3 run on the tensor cores (conv_tc.cu).  It takes:
 //    - one input, or two inputs (skip and up of a decoder entry) whose
 //      channels are the two halves of the weight's Ci, each with its own
 //      prologue: that stands for the conv of their concatenation;
 //    - an optional prologue per input, v = act(a[c] * x + b[c]) in f32
 //      (multiply and add rounded apart, as the plain version does them),
-//      rounded to the compute dtype, applied on load.  Out-of-volume taps
-//      are skipped, so the padding stays zero in the normalized domain;
+//      applied on load.  Out-of-volume taps are skipped, so the padding
+//      stays zero in the normalized domain;
 //    - an optional stats epilogue: per-channel sum and sum of squares of
-//      the f32 accumulator (bias included, before the cast), reduced over
-//      the block in shared memory and added to a (2, Co) buffer with
-//      atomics.
+//      the f32 accumulator (bias included), folded over each warp's lanes
+//      with shuffles, then over the warps in warp order; the block writes
+//      its (2, 16) slice of one row of a (blocks, 2, Co) partial buffer
+//      and unet_dw_reduce (conv_bwd.cu) adds the rows in order: no
+//      atomics, the same bits from run to run.
 // K4 conv_trans2x (replaces unet_studio_tpu/ops/packed.py:439
 //    _trans_kernel): ks2/stride-2 transposed conv; output voxel o reads
 //    input voxel o/2 with weight parity o%2, so there is no halo and no
-//    padding.
+//    padding; bf16 and f32.
 //
 // What bounds them on the H100 (bf16, one input read and one output
 // written): a C->C conv does 2*27*C*C operations per 4*C bytes of voxel
@@ -34,10 +37,8 @@
 // level-0 K1 at 1.7 ms at best: one output voxel and 16 output channels
 // per thread, the weights of a 16-channel input chunk staged in shared
 // memory and read as broadcasts, each voxel's channel run read with
-// 16-byte loads.  They serve f32, where the tensor cores would mean TF32,
-// and bf16 K3 and K4; bf16 K1 runs on the tensor cores (conv_tc.cu).
-
-#include <type_traits>
+// 16-byte loads.  They serve f32, where the tensor cores would mean TF32
+// (the exact oracle of the bf16 kernels), and K4 in both dtypes.
 
 #include "common.cuh"
 
@@ -52,11 +53,11 @@ conv3_kernel(const T* __restrict__ xa, const float* __restrict__ pa_a,
              const float* __restrict__ pa_b, const float* __restrict__ pb_b,
              int act_b, int ci, const T* __restrict__ w,
              const float* __restrict__ bias, T* __restrict__ y,
-             float* __restrict__ stats, int D, int H, int W, int co) {
+             float* __restrict__ part, int D, int H, int W, int co) {
   __shared__ float ws[27][CI_T][CO_T];
   __shared__ float pro_a[CI_T];
   __shared__ float pro_b[CI_T];
-  __shared__ float red[2][CO_T];
+  __shared__ float red[THREADS / 32][2][CO_T];
 
   const int OD = D / STRIDE, OH = H / STRIDE, OW = W / STRIDE;
   const long n_out = (long)OD * OH * OW;
@@ -69,7 +70,6 @@ conv3_kernel(const T* __restrict__ xa, const float* __restrict__ pa_a,
     oy = (int)((vox / OW) % OH);
     oz = (int)(vox / ((long)OW * OH));
   }
-  if (stats != nullptr && threadIdx.x < 2 * CO_T) red[threadIdx.x / CO_T][threadIdx.x % CO_T] = 0.0f;
 
   float acc[CO_T];
 #pragma unroll
@@ -127,8 +127,8 @@ conv3_kernel(const T* __restrict__ xa, const float* __restrict__ pa_a,
     }
   }
 
-  if (stats != nullptr) {
-    const int lane = threadIdx.x & 31;
+  if (part != nullptr) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int j = 0; j < CO_T; ++j) {
       float s = valid ? acc[j] : 0.0f;
@@ -139,14 +139,17 @@ conv3_kernel(const T* __restrict__ xa, const float* __restrict__ pa_a,
         q += __shfl_down_sync(0xffffffffu, q, off);
       }
       if (lane == 0) {
-        atomicAdd(&red[0][j], s);
-        atomicAdd(&red[1][j], q);
+        red[warp][0][j] = s;
+        red[warp][1][j] = q;
       }
     }
     __syncthreads();
     if (threadIdx.x < 2 * CO_T) {
       const int r = threadIdx.x / CO_T, j = threadIdx.x % CO_T;
-      atomicAdd(&stats[r * co + co0 + j], red[r][j]);
+      float t = red[0][r][j];
+#pragma unroll
+      for (int w = 1; w < THREADS / 32; ++w) t += red[w][r][j];
+      part[((long)blockIdx.x * 2 + r) * co + co0 + j] = t;
     }
   }
   if (valid) store16(y + vox * co + co0, acc);
@@ -209,47 +212,41 @@ trans2x_kernel(const T* __restrict__ x, const float* __restrict__ pa,
   if (valid) store16(y + vox * co + co0, acc);
 }
 
-template <typename T>
-static void launch_conv3(const void* xa, const void* pa_a, const void* pb_a, int act_a,
-                         const void* xb, const void* pa_b, const void* pb_b, int act_b,
-                         int ci, const void* w, const void* bias, void* y, void* stats,
-                         int D, int H, int W, int co, int stride, cudaStream_t s) {
-  const long n_out = (long)(D / stride) * (H / stride) * (W / stride);
-  const dim3 grid((unsigned)((n_out + THREADS - 1) / THREADS), co / CO_T);
-#define CONV3_LAUNCH(S)                                                                  \
-  conv3_kernel<T, S><<<grid, THREADS, 0, s>>>(                                           \
-      (const T*)xa, (const float*)pa_a, (const float*)pb_a, act_a, (const T*)xb,          \
-      (const float*)pa_b, (const float*)pb_b, act_b, ci, (const T*)w, (const float*)bias, \
-      (T*)y, (float*)stats, D, H, W, co)
-  if constexpr (std::is_same<T, float>::value) {
-    if (stride == 1) {
-      CONV3_LAUNCH(1);
-      return;
-    }
-  }
-  CONV3_LAUNCH(2);
-#undef CONV3_LAUNCH
-}
+extern "C" int unet_dw_reduce(const void* part, int nblk, long n, void* out, void* stream);
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).  The
-// Python wrapper (ops/conv.py) has checked dtype, shape, contiguity,
-// alignment and that co is a multiple of 16.  bf16 at stride 1 is
-// conv_tc.cu's.
+// Rows of the stats partial buffer of unet_conv3 (its grid along x).
+int unet_conv3_rows(int D, int H, int W, int stride) {
+  const long n_out = (long)(D / stride) * (H / stride) * (W / stride);
+  return (int)((n_out + THREADS - 1) / THREADS);
+}
+
+// f32 only (bf16 is conv_tc.cu's).  Returns cudaGetLastError() after the
+// launches (0 on success).  The Python wrapper (ops/conv.py) has checked
+// shape, contiguity, alignment and that co is a multiple of 16.  part:
+// (unet_conv3_rows, 2, co) f32 scratch and stats: (2, co) f32, both null
+// without stats; a second launch adds part's rows in order into stats.
 int unet_conv3(const void* xa, const void* pa_a, const void* pb_a, int act_a, const void* xb,
                const void* pa_b, const void* pb_b, int act_b, int ci, const void* w,
-               const void* bias, void* y, void* stats, int D, int H, int W, int co, int stride,
-               int dtype, void* stream) {
+               const void* bias, void* y, void* part, void* stats, int D, int H, int W, int co,
+               int stride, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype != DT_F32 && stride == 1) return (int)cudaErrorInvalidValue;
-  if (dtype == DT_F32)
-    launch_conv3<float>(xa, pa_a, pb_a, act_a, xb, pa_b, pb_b, act_b, ci, w, bias, y, stats, D,
-                        H, W, co, stride, s);
+  const int rows = unet_conv3_rows(D, H, W, stride);
+  const dim3 grid((unsigned)rows, co / CO_T);
+#define CONV3_LAUNCH(S)                                                                       \
+  conv3_kernel<float, S><<<grid, THREADS, 0, s>>>(                                            \
+      (const float*)xa, (const float*)pa_a, (const float*)pb_a, act_a, (const float*)xb,       \
+      (const float*)pa_b, (const float*)pb_b, act_b, ci, (const float*)w, (const float*)bias, \
+      (float*)y, (float*)part, D, H, W, co)
+  if (stride == 1)
+    CONV3_LAUNCH(1);
   else
-    launch_conv3<__nv_bfloat16>(xa, pa_a, pb_a, act_a, xb, pa_b, pb_b, act_b, ci, w, bias, y,
-                                stats, D, H, W, co, stride, s);
-  return (int)cudaGetLastError();
+    CONV3_LAUNCH(2);
+#undef CONV3_LAUNCH
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0 || part == nullptr) return rc;
+  return unet_dw_reduce(part, rows, 2L * co, stats, stream);
 }
 
 int unet_trans2x(const void* x, const void* pa, const void* pb, int act, int ci, const void* w,

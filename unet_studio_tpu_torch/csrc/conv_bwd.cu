@@ -8,7 +8,8 @@
 //       runs it at ops/packed.py:1260), here in f32 only: bf16 K5 runs
 //       on the tensor cores (conv_tc.cu dw_tc_kernel);
 //    K6 replaces unet_studio_tpu/ops/packed.py:897 _s2_dw_kernel, the dW
-//       of the 3^3 stride-2 conv;
+//       of the 3^3 stride-2 conv, here in f32 only: bf16 K6 runs on the
+//       tensor cores (conv_tc.cu dw_s2_tc_kernel);
 //    K9 replaces unet_studio_tpu/ops/packed.py:782 _trans_dw_kernel, the
 //       dW of the ks2/stride-2 transposed conv.
 //    For each tap it computes
@@ -23,7 +24,7 @@
 //    share of the voxel tiles in registers and writes its (taps, CA, CB)
 //    slice of a (blocks, taps, CA, CB) f32 buffer; dw_reduce_kernel then
 //    adds the blocks in a fixed order.  So the result is the same from
-//    run to run, where the forward's stats atomics are not.
+//    run to run.
 //    A block holds one row segment of TX voxels of B (16 channels) and the
 //    KS x KS x (STRIDE*(TX-1)+KS) window of A it reaches (CA_T channels)
 //    in shared memory; each thread owns one tap and a 4x4 (a, b) tile (1x4
@@ -50,8 +51,8 @@
 // it; K6, K7, K8 and K9 at 16<->32 each move 330 MB (0.099 ms) for 28.5
 // GFLOP (K6, K7) or 8.5 GFLOP (K8, K9): bytes bound them too.  These run
 // on the CUDA cores in f32 FMA (no wgmma, no TMA), whose 67 TFLOP/s put
-// K5 at 1.7 ms at best; bf16 K5 and K7 have tensor-core versions
-// (conv_tc.cu), K6, K8 and K9 are later work.
+// K5 at 1.7 ms at best; bf16 K5, K6 and K7 have tensor-core versions
+// (conv_tc.cu), K8 and K9 are later work.
 
 #include <type_traits>
 
@@ -167,10 +168,12 @@ conv_dw_kernel(const T* __restrict__ A, int AD, int AH, int AW, int ca,
 }
 
 // out[i] = sum over blocks k of part[k][i] in a fixed order: a block takes
-// 32 consecutive i (one per lane, coalesced), its 8 warps the blocks k =
-// warp, warp + 8, ... in order, then the 8 warp sums are added in warp order.
+// 32 consecutive i (one per lane, coalesced), its RED_W warps the blocks k
+// = warp, warp + RED_W, ... in order, then the warp sums are added in warp
+// order.  8 warps for the dW partials; 32 where there are few outputs and
+// many rows (the conv forward's stats: 2 co values per block).
 #define RED_I 32
-#define RED_W 8
+template <int RED_W>
 __global__ void __launch_bounds__(RED_I * RED_W)
 dw_reduce_kernel(const float* __restrict__ part, int nblk, long n, float* __restrict__ out) {
   __shared__ float sums[RED_W][RED_I];
@@ -189,6 +192,7 @@ dw_reduce_kernel(const float* __restrict__ part, int nblk, long n, float* __rest
     out[i] = t;
   }
 }
+#define RED_FEW 256  // n up to this many: the 32-warp form
 
 // taps of one axis that reach dx coordinate i = 2q + r of a 3/stride-2/pad-1
 // conv with O outputs: (weight tap, g coordinate) pairs
@@ -313,13 +317,13 @@ template <typename T>
 static int dispatch_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, int bd,
                        int bh, int bw, int cb, int ks, int stride, int pad, float* part,
                        int nblk, cudaStream_t s) {
-  constexpr bool F32 = std::is_same<T, float>::value;  // bf16 K5 is conv_tc.cu's
+  constexpr bool F32 = std::is_same<T, float>::value;  // bf16 K5 and K6 are conv_tc.cu's
   if (F32 && ks == 3 && stride == 1 && pad == 1 && ca == 1)
     launch_dw<float, 3, 1, 1, 1>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
   else if (F32 && ks == 3 && stride == 1 && pad == 1)
     launch_dw<float, 3, 1, 1, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
-  else if (ks == 3 && stride == 2 && pad == 1)
-    launch_dw<T, 3, 2, 1, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
+  else if (F32 && ks == 3 && stride == 2 && pad == 1)
+    launch_dw<float, 3, 2, 1, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
   else if (ks == 2 && stride == 2 && pad == 0)
     launch_dw<T, 2, 2, 0, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
   else
@@ -335,7 +339,8 @@ extern "C" {
 // success).  The Python wrappers (ops/conv.py) have checked dtype,
 // shapes, contiguity, 16-byte alignment and the channel counts: ca is 1
 // (ks 3, stride 1 only) or a multiple of 16, cb, co and ci multiples of 16.
-// dtype bf16 with ks 3 and stride 1 has no instance here (conv_tc.cu's).
+// dtype bf16 with ks 3 has no instance here (conv_tc.cu's): bf16 takes
+// K9's ks 2 only.
 
 // part: (nblk, ks^3, ca, cb) f32 scratch; out: (ks^3, ca, cb) f32
 int unet_conv_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, int bd, int bh,
@@ -352,10 +357,15 @@ int unet_conv_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, i
 }
 
 // out[i] = sum over k < nblk, in order, of part[k * n + i]: the second pass
-// of every dW kernel (conv_tc.cu's dw_tc_kernel too)
+// of every dW kernel (conv_tc.cu's dw_tc_kernel too) and of the forward
+// convs' stats (conv.cu, conv_tc.cu)
 int unet_dw_reduce(const void* part, int nblk, long n, void* out, void* stream) {
-  dw_reduce_kernel<<<(unsigned)((n + RED_I - 1) / RED_I), RED_I * RED_W, 0,
-                     (cudaStream_t)stream>>>((const float*)part, nblk, n, (float*)out);
+  const unsigned grid = (unsigned)((n + RED_I - 1) / RED_I);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= RED_FEW)
+    dw_reduce_kernel<32><<<grid, RED_I * 32, 0, s>>>((const float*)part, nblk, n, (float*)out);
+  else
+    dw_reduce_kernel<8><<<grid, RED_I * 8, 0, s>>>((const float*)part, nblk, n, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -36,8 +36,9 @@
 //   to 0, so it needs no reset between launches) adds the partials in
 //   block order into out: out needs no zeroing, one launch does all, and
 //   the result is bitwise the same from run to run for a given shape.
-//   Launches of these kernels on one device must not overlap in time (the
-//   ticket is shared); the port launches them all on one stream.
+//   The ticket and the partials belong to the launch's (device, stream):
+//   the wrapper (ops/reduce.py) passes both, so launches on two streams
+//   may overlap, and launches on one stream run in order.
 // The max folds the same way with fmaxf, which is exact in any order.
 
 #include "common.cuh"
@@ -85,14 +86,14 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-__device__ unsigned int red_ticket;  // blocks done in the running launch
-
 // Every thread: after its partial stores, is this block the launch's last?
-__device__ __forceinline__ bool last_block_done() {
+// ticket: blocks done in the running launch on this stream (0 between
+// launches).
+__device__ __forceinline__ bool last_block_done(unsigned int* ticket) {
   __shared__ bool last;
   __threadfence();  // this thread's partial is visible to the other blocks
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicInc(&red_ticket, gridDim.x - 1) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
   __syncthreads();
   if (last) __threadfence();
   return last;
@@ -136,12 +137,14 @@ static int reduce_smem_floats(int rows, int c, int n) {
 // stride (RED_THREADS * N elements times gridDim.x) is a multiple of C.
 // a: the volume (g for RED_NORM_BWD); b: x for RED_NORM_BWD, else unused;
 // mean: (C,) f32 for RED_SQDIFF and RED_NORM_BWD; inv: (C,) for
-// RED_NORM_BWD; part: (gridDim.x, rows, C) scratch; out: (rows, C).
+// RED_NORM_BWD; part: (gridDim.x, rows, C) scratch; ticket: the stream's
+// ticket; out: (rows, C).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(RED_THREADS)
 channel_reduce_kernel(const T* __restrict__ a, const T* __restrict__ b,
                       const float* __restrict__ mean, const float* __restrict__ inv, long n_vec,
-                      int c, float* __restrict__ part, float* __restrict__ out) {
+                      int c, float* __restrict__ part, unsigned int* ticket,
+                      float* __restrict__ out) {
   using V = Vec<T>;
   constexpr int N = V::N;
   constexpr int ROWS = (MODE == RED_SUM_SQ || MODE == RED_NORM_BWD) ? 2 : 1;
@@ -214,16 +217,17 @@ channel_reduce_kernel(const T* __restrict__ a, const T* __restrict__ b,
     for (int j = 0; j < nrep; ++j) t += sh[(r * nrep + j) * c + ch];
     bpart[i] = t;
   }
-  if (!last_block_done()) return;
+  if (!last_block_done(ticket)) return;
   fold_partials(part, gridDim.x, ROWS * c, sh, out);
 }
 
 // *out = max(0, x[0..n)).  The first n_vec * N elements go as 16-byte
-// vectors, the last (fewer than N) one by one; part: (gridDim.x,) scratch.
+// vectors, the last (fewer than N) one by one; part: (gridDim.x,) scratch;
+// ticket: the stream's ticket.
 template <typename T>
 __global__ void __launch_bounds__(RED_THREADS)
 max_kernel(const T* __restrict__ x, long n_vec, long n, float* __restrict__ part,
-           float* __restrict__ out) {
+           unsigned int* ticket, float* __restrict__ out) {
   using V = Vec<T>;
   constexpr int N = V::N;
   __shared__ float warp_max[RED_THREADS / 32];
@@ -254,7 +258,7 @@ max_kernel(const T* __restrict__ x, long n_vec, long n, float* __restrict__ part
     for (int w = 1; w < RED_THREADS / 32; ++w) m = fmaxf(m, warp_max[w]);
     part[blockIdx.x] = m;
   }
-  if (!last_block_done()) return;
+  if (!last_block_done(ticket)) return;
   if (threadIdx.x < 32) {
     m = 0.0f;
     for (int b = threadIdx.x; b < (int)gridDim.x; b += 32) m = fmaxf(m, __ldcg(part + b));
@@ -305,7 +309,8 @@ static unsigned reduce_grid(const void* kernel, int smem, long n_vec) {
 
 template <typename T, int MODE>
 static void launch_channels(const void* a, const void* b, const void* mean, const void* inv,
-                            long n_vox, int c, void* part, void* out, cudaStream_t s) {
+                            long n_vox, int c, void* part, void* ticket, void* out,
+                            cudaStream_t s) {
   constexpr int N = Vec<T>::N;
   constexpr int ROWS = (MODE == RED_SUM_SQ || MODE == RED_NORM_BWD) ? 2 : 1;
   const long n_vec = n_vox * c / N;
@@ -314,16 +319,17 @@ static void launch_channels(const void* a, const void* b, const void* mean, cons
   const unsigned grid = reduce_grid((const void*)kernel, smem, n_vec);
   kernel<<<grid, RED_THREADS, smem, s>>>((const T*)a, (const T*)b, (const float*)mean,
                                          (const float*)inv, n_vec, c, (float*)part,
-                                         (float*)out);
+                                         (unsigned int*)ticket, (float*)out);
 }
 
 template <int MODE>
 static void launch_mode(const void* a, const void* b, const void* mean, const void* inv,
-                        long n_vox, int c, void* part, void* out, int dtype, cudaStream_t s) {
+                        long n_vox, int c, void* part, void* ticket, void* out, int dtype,
+                        cudaStream_t s) {
   if (dtype == DT_F32)
-    launch_channels<float, MODE>(a, b, mean, inv, n_vox, c, part, out, s);
+    launch_channels<float, MODE>(a, b, mean, inv, n_vox, c, part, ticket, out, s);
   else
-    launch_channels<__nv_bfloat16, MODE>(a, b, mean, inv, n_vox, c, part, out, s);
+    launch_channels<__nv_bfloat16, MODE>(a, b, mean, inv, n_vox, c, part, ticket, out, s);
 }
 
 extern "C" {
@@ -331,20 +337,21 @@ extern "C" {
 // Each entry returns cudaGetLastError() after its launch (0 on success).
 // The wrappers (ops/reduce.py) have checked dtype, contiguity, 16-byte
 // alignment and C.  part: RED_MAX_BLOCKS * rows * C f32 scratch (rows: 2
-// for RED_SUM_SQ and RED_NORM_BWD, else 1), its contents unused; out:
-// (rows, C) f32, uninitialised.
+// for RED_SUM_SQ and RED_NORM_BWD, else 1), its contents unused; ticket:
+// one unsigned int, 0 at allocation, never touched between launches; both
+// belong to the launch's stream.  out: (rows, C) f32, uninitialised.
 
 // mode: RED_SUM, RED_SUM_SQ or RED_SQDIFF; mean: (C,) f32 for RED_SQDIFF,
 // else unused.
 int unet_channel_moments(const void* x, const void* mean, long n_vox, int c, int mode,
-                         void* part, void* out, int dtype, void* stream) {
+                         void* part, void* ticket, void* out, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == RED_SUM)
-    launch_mode<RED_SUM>(x, nullptr, mean, nullptr, n_vox, c, part, out, dtype, s);
+    launch_mode<RED_SUM>(x, nullptr, mean, nullptr, n_vox, c, part, ticket, out, dtype, s);
   else if (mode == RED_SUM_SQ)
-    launch_mode<RED_SUM_SQ>(x, nullptr, mean, nullptr, n_vox, c, part, out, dtype, s);
+    launch_mode<RED_SUM_SQ>(x, nullptr, mean, nullptr, n_vox, c, part, ticket, out, dtype, s);
   else if (mode == RED_SQDIFF)
-    launch_mode<RED_SQDIFF>(x, nullptr, mean, nullptr, n_vox, c, part, out, dtype, s);
+    launch_mode<RED_SQDIFF>(x, nullptr, mean, nullptr, n_vox, c, part, ticket, out, dtype, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -352,24 +359,27 @@ int unet_channel_moments(const void* x, const void* mean, long n_vox, int c, int
 
 // g, x: (n_vox, C) of one dtype; mean, inv: (C,) f32; out: (2, C).
 int unet_channel_norm_bwd(const void* g, const void* x, const void* mean, const void* inv,
-                          long n_vox, int c, void* part, void* out, int dtype, void* stream) {
-  launch_mode<RED_NORM_BWD>(g, x, mean, inv, n_vox, c, part, out, dtype, (cudaStream_t)stream);
+                          long n_vox, int c, void* part, void* ticket, void* out, int dtype,
+                          void* stream) {
+  launch_mode<RED_NORM_BWD>(g, x, mean, inv, n_vox, c, part, ticket, out, dtype,
+                            (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
 // x: n values, 16-byte aligned; part: RED_MAX_BLOCKS f32; out: one f32.
-int unet_volume_max(const void* x, long n, void* part, void* out, int dtype, void* stream) {
+int unet_volume_max(const void* x, long n, void* part, void* ticket, void* out, int dtype,
+                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DT_F32) {
     const long n_vec = n / Vec<float>::N;
     auto kernel = max_kernel<float>;
     kernel<<<reduce_grid((const void*)kernel, 0, n_vec), RED_THREADS, 0, s>>>(
-        (const float*)x, n_vec, n, (float*)part, (float*)out);
+        (const float*)x, n_vec, n, (float*)part, (unsigned int*)ticket, (float*)out);
   } else {
     const long n_vec = n / Vec<__nv_bfloat16>::N;
     auto kernel = max_kernel<__nv_bfloat16>;
     kernel<<<reduce_grid((const void*)kernel, 0, n_vec), RED_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, n_vec, n, (float*)part, (float*)out);
+        (const __nv_bfloat16*)x, n_vec, n, (float*)part, (unsigned int*)ticket, (float*)out);
   }
   return (int)cudaGetLastError();
 }

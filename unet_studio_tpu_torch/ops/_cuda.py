@@ -44,18 +44,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 _SIGNATURES = {
-    # xa, pa_a, pb_a, act_a, xb, pa_b, pb_b, act_b, ci, w, bias, y, stats,
-    # D, H, W, co, stride, dtype, stream
-    "unet_conv3": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _P],
+    # f32: xa, pa_a, pb_a, act_a, xb, pa_b, pb_b, act_b, ci, w, bias, y,
+    # part, stats, D, H, W, co, stride, stream
+    "unet_conv3": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _P],
+    # D, H, W, stride: rows of unet_conv3's stats partials
+    "unet_conv3_rows": [_I, _I, _I, _I],
     # x, pa, pb, act, ci, w, bias, y, D, H, W, co, dtype, stream
     "unet_trans2x": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, mean, n_vox, c, mode, part, out, dtype, stream
-    "unet_channel_moments": [_P, _P, _L, _I, _I, _P, _P, _I, _P],
-    # x, n, part, out, dtype, stream
-    "unet_volume_max": [_P, _L, _P, _P, _I, _P],
-    # g, x, mean, inv, n_vox, c, part, out, dtype, stream
-    "unet_channel_norm_bwd": [_P, _P, _P, _P, _L, _I, _P, _P, _I, _P],
+    # x, mean, n_vox, c, mode, part, ticket, out, dtype, stream
+    "unet_channel_moments": [_P, _P, _L, _I, _I, _P, _P, _P, _I, _P],
+    # x, n, part, ticket, out, dtype, stream
+    "unet_volume_max": [_P, _L, _P, _P, _P, _I, _P],
+    # g, x, mean, inv, n_vox, c, part, ticket, out, dtype, stream
+    "unet_channel_norm_bwd": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
     # a, AD, AH, AW, ca, b, BD, BH, BW, cb, ks, stride, pad, part, nblk, out,
     # dtype, stream
     "unet_conv_dw": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
@@ -65,13 +67,19 @@ _SIGNATURES = {
     # g, co, w, dx, D, H, W, ci, dtype, stream
     "unet_trans2x_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # tensor-core (bf16) route: xa, pa_a, pb_a, act_a, xb, pa_b, pb_b, act_b,
-    # ci, w, bias, y, stats, D, H, W, co, stream
-    "unet_conv3_tc": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+    # ci, w, bias, y, part, stats, D, H, W, co, stream
+    "unet_conv3_tc": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _P],
-    # x, w, bias, y, stats, D, H, W, co, stream
-    "unet_conv3_entry_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, bias, y, part, stats, D, H, W, co, stream
+    "unet_conv3_entry_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K3: x, pa, pb, act, ci, w, bias, y, part, stats, D, H, W, co, stream
+    "unet_conv3_s2_tc": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # kind, ci, co, D, H, W: rows of the tensor-core forward's stats partials
+    "unet_conv3_tc_rows": [_I, _I, _I, _I, _I, _I],
     # x, g, D, H, W, ci, co, part, nblk, out, stream (bf16 K5)
     "unet_conv_dw_tc": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    # x, g, OD, OH, OW, ci, co, part, nblk, out, stream (bf16 K6)
+    "unet_conv_dw_s2_tc": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     # part, nblk, n, out, stream
     "unet_dw_reduce": [_P, _I, _L, _P, _P],
     # g, co, w, dx, OD, OH, OW, ci, stream

@@ -22,21 +22,20 @@ the f32 result before its cast (the next norm's statistics).
 Each wrapper runs its twin when the tensor lies on the CPU and launches
 its CUDA kernel when it lies on a card; there it raises on what the
 kernel does not take.  The route goes by dtype: bf16 K1 (all four uses),
-K5 and K7 run on the tensor cores (``csrc/conv_tc.cu``, operands laid out
-by ``ops/tc_layout.py``) for the channel counts of ``KERNEL_CHANNELS``,
-``tc_layout.DW_CI``/``DW_CO`` and ``TC_S2DX``; f32 keeps the FMA kernels
-(``csrc/conv.cu``, ``csrc/conv_bwd.cu``), since f32 on the tensor cores
-would be TF32.
+K3, K5, K6 and K7 run on the tensor cores (``csrc/conv_tc.cu``, operands
+laid out by ``ops/tc_layout.py``) for the channel counts of
+``KERNEL_CHANNELS``, ``tc_layout.DW_CI``/``DW_CO``, ``TC_S2`` and
+``TC_S2DX``; f32 keeps the FMA kernels (``csrc/conv.cu``,
+``csrc/conv_bwd.cu``), since f32 on the tensor cores would be TF32.
 ``<wrapper>.launches`` counts the kernel launches, and
 ``<wrapper>.tc_launches`` those of them on the tensor-core route.
 
 The twins compute in f32 from the inputs and weights rounded to the
-compute dtype, as the kernels do.  With ``atomicAdd`` in the kernels'
-stats epilogue the order of that sum changes from run to run, so the
-stats agree with the twin's to f32 rounding of a long sum, not bitwise.
-The weight gradients sum over the volume in another order than the
-twins' matmuls (deterministically: partial sums per block, then one
-ordered sum), so they too agree to f32 rounding of a long sum.
+compute dtype, as the kernels do.  The kernels' stats and the weight
+gradients sum over the volume in another order than the twins (partial
+sums per block in a fixed order, then one ordered sum over the blocks, no
+atomics), so they agree with the twins to f32 rounding of a long sum and
+are bitwise the same from run to run.
 """
 
 from __future__ import annotations
@@ -50,6 +49,9 @@ from . import _cuda, tc_layout
 # for each (C -> C per input, and the entry's 1 -> C)
 KERNEL_CHANNELS = (16, 32, 64)
 TC_S2DX = ((16, 32), (32, 64), (64, 128))  # bf16 K7: (dx channels, g channels)
+TC_S2 = tc_layout.S2_PAIRS  # bf16 K3 and K6: (Ci, Co)
+# kinds of csrc/conv_tc.cu unet_conv3_tc_rows
+_KIND_K1, _KIND_DUAL, _KIND_ENTRY, _KIND_K3 = 0, 1, 2, 3
 
 
 def apply_prologue(x: torch.Tensor, prologue) -> torch.Tensor:
@@ -210,15 +212,20 @@ def _launch_conv3(xs, prologues, w, b, stride: int, want_stats: bool, name: str)
     if stride == 2 and (d % 2 or h % 2 or wd % 2):
         raise ValueError(f"{name}: stride 2 needs even D, H, W, got {(d, h, wd)}")
     dt = xa.dtype
-    tc = dt == torch.bfloat16 and stride == 1
-    if tc and ci == 1 and co not in KERNEL_CHANNELS:
+    tc = dt == torch.bfloat16
+    if tc and stride == 2 and (len(xs) != 1 or (ci, co) not in TC_S2):
+        raise ValueError(f"{name}: bf16 stride-2 conv has no tensor-core kernel for Ci={ci}, "
+                         f"Co={co} (takes {TC_S2})")
+    if tc and stride == 1 and ci == 1 and co not in KERNEL_CHANNELS:
         raise ValueError(f"{name}: bf16 entry conv has no tensor-core kernel for Co={co}")
-    if tc and ci != 1 and (ci != co or ci not in KERNEL_CHANNELS):
+    if tc and stride == 1 and ci != 1 and (ci != co or ci not in KERNEL_CHANNELS):
         raise ValueError(f"{name}: bf16 conv has no tensor-core kernel for Ci={ci}, Co={co} "
                          f"(takes Ci = Co in {KERNEL_CHANNELS} per input)")
     bias = b.detach().to(dtype=torch.float32).contiguous()
     y = torch.empty((d // stride, h // stride, wd // stride, co), dtype=dt, device=xa.device)
-    stats = torch.zeros((2, co), dtype=torch.float32, device=xa.device) if want_stats else None
+    kind = (_KIND_K3 if stride == 2 else _KIND_ENTRY if ci == 1
+            else _KIND_DUAL if len(xs) == 2 else _KIND_K1)
+    part = stats = None
     pa, pb, act = _prologue_args(prologues[0], ci, xa.device)
     if len(xs) == 2:
         xb = xs[1]
@@ -228,22 +235,35 @@ def _launch_conv3(xs, prologues, w, b, stride: int, want_stats: bool, name: str)
     p = _cuda.ptr
     wdt = w.detach().to(dtype=dt)
     with torch.cuda.device(xa.device):
-        if tc and ci == 1:
+        lib, stream = _cuda.lib(), _cuda.stream_ptr(xa)
+        if want_stats:
+            # one row of partial sums per block of the launch, added in
+            # order into stats by the entry's second launch
+            rows = (lib.unet_conv3_tc_rows(kind, ci, co, d, h, wd) if tc
+                    else lib.unet_conv3_rows(d, h, wd, stride))
+            if rows < 1:
+                raise ValueError(f"{name}: no stats partials for Ci={ci}, Co={co}")
+            part = torch.empty((rows, 2, co), dtype=torch.float32, device=xa.device)
+            stats = torch.empty((2, co), dtype=torch.float32, device=xa.device)
+        if tc and kind == _KIND_K3:
+            wk = tc_layout.pack_weights(wdt, "k3")
+            rc = lib.unet_conv3_s2_tc(p(xa), p(pa), p(pb), act, ci, p(wk), p(bias), p(y),
+                                      p(part), p(stats), d, h, wd, co, stream)
+        elif tc and kind == _KIND_ENTRY:
             wk = tc_layout.pack_weights(wdt, "entry")
-            rc = _cuda.lib().unet_conv3_entry_tc(p(xa), p(wk), p(bias), p(y), p(stats), d, h,
-                                                 wd, co, _cuda.stream_ptr(xa))
+            rc = lib.unet_conv3_entry_tc(p(xa), p(wk), p(bias), p(y), p(part), p(stats), d, h,
+                                         wd, co, stream)
         elif tc:
             wk = tc_layout.pack_weights(wdt, "k1_dual" if len(xs) == 2 else "k1")
-            rc = _cuda.lib().unet_conv3_tc(
+            rc = lib.unet_conv3_tc(
                 p(xa), p(pa), p(pb), act, p(xb), p(qa), p(qb), act_b, ci, p(wk), p(bias),
-                p(y), p(stats), d, h, wd, co, _cuda.stream_ptr(xa))
+                p(y), p(part), p(stats), d, h, wd, co, stream)
         else:
             # (Co, Ci, kz, ky, kx) -> (kz, ky, kx, Ci, Co): the FMA kernel's tap-major layout
             wk = wdt.permute(2, 3, 4, 1, 0).contiguous()
-            rc = _cuda.lib().unet_conv3(
+            rc = lib.unet_conv3(
                 p(xa), p(pa), p(pb), act, p(xb), p(qa), p(qb), act_b, ci, p(wk), p(bias),
-                p(y), p(stats), d, h, wd, co, stride, _cuda.DTYPE_CODES[dt],
-                _cuda.stream_ptr(xa))
+                p(y), p(part), p(stats), d, h, wd, co, stride, stream)
     _cuda.check(rc, name)
     return (y, stats) if want_stats else y
 
@@ -298,11 +318,12 @@ def conv3x3x3_dual(xa, xb, w, b, *, prologue_a=None, prologue_b=None):
 def conv3x3x3_s2(x, w, b, *, prologue=None, want_stats=False):
     """K3, C->2C: 3x3x3 stride-2 pad-1 conv + bias on even D, H, W.
     Replaces unet_studio_tpu/ops/packed.py ``_s2_fwd_kernel``
-    (``conv_s2_down``)."""
+    (``conv_s2_down``).  bf16 runs on the tensor cores for (Ci, Co) in
+    ``TC_S2``."""
     if x.device.type == "cpu":
         return conv3_plain([x], [prologue], w, b, 2, want_stats)
     out = _launch_conv3([x], [prologue], w, b, 2, want_stats, "conv3x3x3_s2")
-    conv3x3x3_s2.launches += 1
+    _count(conv3x3x3_s2, x)
     return out
 
 
@@ -384,26 +405,31 @@ def _launch_dw(a, b, ks: int, stride: int, pad: int, name: str):
     return out
 
 
-def _launch_dw_tc(x, g, name: str):
-    """(27, Ci, Co) f32 from the tensor-core dW kernel (bf16 K5)."""
+def _launch_dw_tc(x, g, stride: int, name: str):
+    """(27, Ci, Co) f32 from the tensor-core dW kernel: bf16 K5 (stride 1,
+    x and g of one size) or K6 (stride 2, x twice g's size)."""
     ci, co = x.shape[-1], g.shape[-1]
     _check_act(x, ci, name)
     _check_act(g, co, name)
-    if g.dtype != torch.bfloat16 or x.shape[:3] != g.shape[:3]:
+    if g.dtype != torch.bfloat16 or tuple(x.shape[:3]) != tuple(stride * n for n in g.shape[:3]):
         raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} and g {tuple(g.shape)} "
-                         f"{g.dtype} must be bf16 volumes of one size")
-    if ci not in tc_layout.DW_CI or co not in tc_layout.DW_CO:
+                         f"{g.dtype} must be bf16 volumes of stride {stride}")
+    if stride == 1 and (ci not in tc_layout.DW_CI or co not in tc_layout.DW_CO):
         raise ValueError(f"{name}: bf16 dW has no tensor-core kernel for Ci={ci}, Co={co} "
                          f"(takes Ci in {tc_layout.DW_CI}, Co in {tc_layout.DW_CO})")
+    if stride == 2 and (ci, co) not in TC_S2:
+        raise ValueError(f"{name}: bf16 stride-2 dW has no tensor-core kernel for Ci={ci}, "
+                         f"Co={co} (takes {TC_S2})")
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nblk = tc_layout.dw_blocks(x.shape[:3], ci, co, n_sm)
+    nblk = tc_layout.dw_blocks(g.shape[:3], ci, co, n_sm, stride)
     part = torch.empty(tc_layout.dw_partial_shape(nblk, ci, co), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((27, ci, co), dtype=torch.float32, device=x.device)
     p = _cuda.ptr
     with torch.cuda.device(x.device):
-        rc = _cuda.lib().unet_conv_dw_tc(p(x), p(g), *x.shape[:3], ci, co, p(part), nblk,
-                                         p(out), _cuda.stream_ptr(x))
+        entry = _cuda.lib().unet_conv_dw_tc if stride == 1 else _cuda.lib().unet_conv_dw_s2_tc
+        rc = entry(p(x), p(g), *g.shape[:3], ci, co, p(part), nblk, p(out),
+                   _cuda.stream_ptr(x))
     _cuda.check(rc, name)
     return out
 
@@ -418,7 +444,7 @@ def conv3x3x3_dw(x, g):
         out = conv_dw_plain(x, g, 3, 1, 1)
     else:
         if x.dtype == torch.bfloat16:
-            out = _launch_dw_tc(x, g, "conv3x3x3_dw")
+            out = _launch_dw_tc(x, g, 1, "conv3x3x3_dw")
         else:
             out = _launch_dw(x, g, 3, 1, 1, "conv3x3x3_dw")
         _count(conv3x3x3_dw, x)
@@ -429,12 +455,16 @@ def conv3x3x3_s2_dw(x, g):
     """K6: the f32 (Co, Ci, 3, 3, 3) weight gradient of the 3x3x3
     stride-2 pad-1 conv with input ``x`` (D, H, W, Ci) and output gradient
     ``g`` (D/2, H/2, W/2, Co).  Replaces unet_studio_tpu/ops/packed.py
-    ``_s2_dw_kernel`` (in ``conv_s2_p``'s VJP)."""
+    ``_s2_dw_kernel`` (in ``conv_s2_p``'s VJP).  bf16 runs on the tensor
+    cores for (Ci, Co) in ``TC_S2``."""
     if x.device.type == "cpu":
         out = conv_dw_plain(x, g, 3, 2, 1)
     else:
-        out = _launch_dw(x, g, 3, 2, 1, "conv3x3x3_s2_dw")
-        conv3x3x3_s2_dw.launches += 1
+        if x.dtype == torch.bfloat16:
+            out = _launch_dw_tc(x, g, 2, "conv3x3x3_s2_dw")
+        else:
+            out = _launch_dw(x, g, 3, 2, 1, "conv3x3x3_s2_dw")
+        _count(conv3x3x3_s2_dw, x)
     return out.reshape(3, 3, 3, x.shape[-1], g.shape[-1]).permute(4, 3, 0, 1, 2).contiguous()
 
 
@@ -518,8 +548,8 @@ def conv_trans2x_dx(g, w):
 WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x,
             conv3x3x3_dx, conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx, conv_trans2x_dx,
             conv_trans2x_dw)
-TC_WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_dx, conv3x3x3_dw,
-               conv3x3x3_s2_dx)
+TC_WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv3x3x3_dx,
+               conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx)
 for _fn in WRAPPERS:
     _fn.launches = 0
     _fn.tc_launches = 0

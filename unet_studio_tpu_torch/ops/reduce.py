@@ -14,13 +14,15 @@ Each wrapper runs its twin when the tensor lies on the CPU and launches
 the CUDA kernel (``csrc/reduce.cu``) when it lies on a card, where it
 raises on what the kernel does not take.  A launch is one ctypes call and
 one kernel: it writes every value of its output, which the wrapper
-allocates uninitialised (``torch.empty`` launches nothing); the per-block
-partial sums go to one scratch buffer per card, which every launch reuses
-(launches run in stream order, and each writes its partials before its
-last block reads them).  The kernels sum in a fixed order (per block,
-then the blocks in order), so a result is bitwise the same from run to
-run; it agrees with the twin to f32 rounding of a long sum.  ``max`` is
-exact.
+allocates uninitialised (``torch.empty`` launches nothing).  The
+per-block partial sums go to a scratch buffer, and the last block is
+found through a ticket word; both belong to the launch's (card, stream)
+and every launch on that stream reuses them (launches on one stream run
+in order, and each writes its partials before its last block reads
+them), so launches on two streams may overlap in time.  The kernels sum
+in a fixed order (per block, then the blocks in order), so a result is
+bitwise the same from run to run; it agrees with the twin to f32
+rounding of a long sum.  ``max`` is exact.
 """
 
 from __future__ import annotations
@@ -81,17 +83,25 @@ def _check_volume(x: torch.Tensor, name: str) -> int:
 _SUM, _SUM_SQ, _SQDIFF = 0, 1, 2
 # RED_MAX_BLOCKS of csrc/reduce.cu: the most blocks, so partials, per launch
 _MAX_BLOCKS = 1024
-_scratch: dict[int, torch.Tensor] = {}
+# per (card index, raw stream handle): the partial-sum scratch, grown when a
+# launch needs more, and the ticket (one word, 0 at allocation; the kernels
+# leave it 0 after every launch)
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _partials(device: torch.device, rows: int, c: int) -> int:
-    """Address of the card's scratch for ``_MAX_BLOCKS`` partial (rows, C)
-    sums, grown when a launch needs more."""
+def _partials(x: torch.Tensor, rows: int, c: int) -> tuple[int, int]:
+    """Addresses of the scratch for ``_MAX_BLOCKS`` partial (rows, C) sums
+    and of the ticket of ``x``'s card and current stream."""
+    key = (x.device.index, _cuda.stream_ptr(x))
     n = _MAX_BLOCKS * rows * c
-    buf = _scratch.get(device.index)
+    buf = _scratch.get(key)
     if buf is None or buf.numel() < n:
-        buf = _scratch[device.index] = torch.empty(n, dtype=torch.float32, device=device)
-    return buf.data_ptr()
+        buf = _scratch[key] = torch.empty(n, dtype=torch.float32, device=x.device)
+    ticket = _tickets.get(key)
+    if ticket is None:
+        ticket = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=x.device)
+    return buf.data_ptr(), ticket.data_ptr()
 
 
 def _moments(x: torch.Tensor, mode: int, mean: torch.Tensor | None, name: str) -> torch.Tensor:
@@ -102,7 +112,7 @@ def _moments(x: torch.Tensor, mode: int, mean: torch.Tensor | None, name: str) -
     with _cuda.on_device(x):
         rc = _cuda.lib().unet_channel_moments(
             x.data_ptr(), _cuda.ptr(mean), x.numel() // c, c, mode,
-            _partials(x.device, rows, c), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype],
+            *_partials(x, rows, c), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype],
             _cuda.stream_ptr(x),
         )
     _cuda.check(rc, name)
@@ -153,7 +163,7 @@ def volume_max(x: torch.Tensor) -> torch.Tensor:
     _check_dense(x, "volume_max")
     out = torch.empty((), dtype=torch.float32, device=x.device)
     with _cuda.on_device(x):
-        rc = _cuda.lib().unet_volume_max(x.data_ptr(), x.numel(), _partials(x.device, 1, 1),
+        rc = _cuda.lib().unet_volume_max(x.data_ptr(), x.numel(), *_partials(x, 1, 1),
                                          out.data_ptr(), _cuda.DTYPE_CODES[x.dtype],
                                          _cuda.stream_ptr(x))
     _cuda.check(rc, "volume_max")
@@ -181,7 +191,7 @@ def norm_bwd_sums(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     with _cuda.on_device(g):
         rc = _cuda.lib().unet_channel_norm_bwd(
             g.data_ptr(), x.data_ptr(), mean.data_ptr(), inv.data_ptr(), g.numel() // c, c,
-            _partials(g.device, 2, c), out.data_ptr(), _cuda.DTYPE_CODES[g.dtype],
+            *_partials(g, 2, c), out.data_ptr(), _cuda.DTYPE_CODES[g.dtype],
             _cuda.stream_ptr(g),
         )
     _cuda.check(rc, "norm_bwd_sums")

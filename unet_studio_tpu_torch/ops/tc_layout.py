@@ -10,6 +10,8 @@ weights' device, before each launch:
   channels of one tap of one source;
 - ``entry_weight_matrix``: the 1->C entry's B, its 27 taps padded to 32
   with zero rows;
+- ``k3_weight_matrix``: K3's B, K1's order, Co = 128 as two halves of 64
+  channels one after the other along K (a block of K3 takes one half);
 - ``s2dx_weight_matrix``: K7's B, K in (tap, g channel) order over the
   taps of ``s2dx_taps``, the 8 parity classes one after another;
 - ``pack_b``: B in mma fragment order, the layout the kernels read;
@@ -21,13 +23,17 @@ The kernels recompute the same K order from their loop indices; the CPU
 tests hold these matrices, through a plain im2col GEMM, to the convs'
 twins, and the card tests hold the kernels to the twins.
 
-K5 (``dw_tc_kernel``) packs no weights: it reads x and g as they are.
-Its geometry is here as plain functions (``dw_*``, ``swizzle``), the
-same arithmetic as the kernel's: the tiles each block walks, the halo and
-a tap's voxel offset in it, the 16-byte chunk swizzle, the rows each lane
-hands ldmatrix, which warp owns which (tap, m-tile) job, the grid and the
-partial buffer.  The wrapper sizes the launch with them; the CPU tests
-replay the kernel's GEMM through them against ``conv_dw_plain``.
+K3's tile geometry is here too (``k3_*``, ``s2_slot``): its input halo
+is staged split by x parity, so a tap's 16 A rows are consecutive.
+
+K5 and K6 (``dw_tc_kernel``, ``dw_s2_tc_kernel``) pack no weights: they
+read x and g as they are.  Their geometry is here as plain functions
+(``dw_*`` with ``stride`` 1 or 2, ``swizzle``), the same arithmetic as the
+kernels': the tiles each block walks, the halo and a tap's voxel offset
+in it, the 16-byte chunk swizzle, the rows each lane hands ldmatrix,
+which warp owns which (tap, m-tile) job, the grid and the partial buffer.
+The wrappers size the launches with them; the CPU tests replay the
+kernels' GEMMs through them against ``conv_dw_plain``.
 """
 
 from __future__ import annotations
@@ -75,6 +81,25 @@ def entry_weight_matrix(w: torch.Tensor) -> torch.Tensor:
     return F.pad(w.reshape(w.shape[0], 27).T, (0, 0, 0, 5))
 
 
+# K3 (and K6): output channels per block, Co = 128 split over grid.y
+K3_NB = 64
+# (Ci, Co) of the stride-2 convs with a tensor-core instance (K3 and K6)
+S2_PAIRS = ((16, 32), (32, 64), (64, 128))
+
+
+def k3_nb(co: int) -> int:
+    return min(co, K3_NB)
+
+
+def k3_weight_matrix(w: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3, 3) -> (Co / NB * 27 * Ci, NB): K1's (27 * Ci, Co)
+    matrix cut into its column slices of NB = ``k3_nb(Co)``, stacked along
+    K, so that slice h's k-steps are the h-th contiguous run of the packed
+    weights."""
+    wm = k1_weight_matrix(w)
+    return torch.cat(wm.split(k3_nb(wm.shape[1]), dim=1), 0)
+
+
 def s2dx_taps() -> list[tuple[int, tuple[int, int, int], tuple[int, int, int]]]:
     """The 27 taps of K7 in the kernel's order: (class p, g offset (z, y,
     x), conv tap (kz, ky, kx)).  Class p = 4*pz + 2*py + px takes the dx
@@ -101,6 +126,7 @@ LAYOUTS = {
     "k1_dual": functools.partial(k1_weight_matrix, nsrc=2),
     "entry": entry_weight_matrix,
     "s2dx": s2dx_weight_matrix,
+    "k3": k3_weight_matrix,
 }
 
 
@@ -119,19 +145,75 @@ def pack_weights(w: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K5 on the tensor cores: dw_tc_kernel's geometry
+# the stride-2 input halo of K3 and K6 (s2_tc_kernel, dw_s2_tc_kernel)
+# ---------------------------------------------------------------------------
+
+S2_HX = 33  # halo x of a tile of 16 output x: the 16 even input x, then the 17 odd
+
+
+def s2_slot(dx: int) -> int:
+    """Halo slot of tap dx for output x offset 0 (add the offset m): the
+    even input x 2(x0 + m) at slot m (dx = 1), the odd 2(x0 + m) - 1 and
+    2(x0 + m) + 1 at slots 16 + m (dx = 0) and 17 + m (dx = 2)."""
+    return 0 if dx == 1 else 16 + dx // 2
+
+
+def s2_slot_x(sl: int) -> int:
+    """Input x of halo slot ``sl`` less the tile's 2 * x0 - 1."""
+    return 2 * sl + 1 if sl < 16 else 2 * (sl - 16)
+
+
+def s2_halo(tz: int, ty: int) -> tuple[int, int, int]:
+    """(HZ, HY, HX) input voxels staged for a tile of tz x ty x 16 output
+    voxels, origin at input (2 z0 - 1, 2 y0 - 1, 2 x0 - 1)."""
+    return 2 * tz + 1, 2 * ty + 1, S2_HX
+
+
+def s2_tap_offset(tap: int, tz: int, ty: int) -> int:
+    """Halo voxel offset of tap (dz, dy, dx) from the row base of output
+    row (0, 0) (``s2_row_base``)."""
+    _, hy, hx = s2_halo(tz, ty)
+    return ((tap // 9) * hy + (tap // 3) % 3) * hx + s2_slot(tap % 3)
+
+
+def s2_row_base(r: int, tz: int, ty: int) -> int:
+    """Halo voxel of tile row r = (r // ty, r % ty) at tap (0, 0, 1), x 0."""
+    _, hy, hx = s2_halo(tz, ty)
+    return (2 * (r // ty) * hy + 2 * (r % ty)) * hx
+
+
+TC_WARPS = 4  # warps of the forward tensor-core kernels
+
+
+def k3_tile(ci: int) -> tuple[int, int, int]:
+    """(TZ, TY, TX) output voxels of one K3 tile; row block r = warp * MT +
+    mt, MT = TZ * TY / 4, is the output row (r // TY, r % TY)."""
+    return (1 if ci == 64 else 2), 4, 16
+
+
+def k3_tiles(out_dims, ci: int) -> list[tuple[int, int, int]]:
+    """(z0, y0, x0) of every K3 tile in tile-index order (x fastest); block
+    b takes tiles b, b + grid, ..."""
+    tz, ty, tx = k3_tile(ci)
+    d, h, w = out_dims
+    return [(z, y, x) for z in range(0, d, tz) for y in range(0, h, ty) for x in range(0, w, tx)]
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 on the tensor cores: dw_tc_kernel's and dw_s2_tc_kernel's geometry
 # ---------------------------------------------------------------------------
 
 DW_TX = 16  # output x per k-step (one mma K of 16 voxels)
-DW_NB = 16  # output channels per block: grid.y slices Co
-DW_WARPS = 9  # stride 1: one warp per (dz, dx) tap column
+DW_NB = 16  # stride 1: output channels per block, grid.y slices Co
+DW_WARPS = 9  # one warp per (dz, dx) tap column
 DWE_WARPS = 8  # the entry: warps share out the k-rows
-DW_CI = (1, 16, 32, 64)  # input channels with an instance (1: the entry)
-DW_CO = (16, 32, 64)
+DW_CI = (1, 16, 32, 64)  # stride 1: input channels with an instance (1: the entry)
+DW_CO = (16, 32, 64)  # stride 1; stride 2 takes the (Ci, Co) of S2_PAIRS
 # blocks per SM the grid assumes (registers and the double-buffered tiles'
 # shared memory of each instance allow these many at once; fewer would
 # only add a second wave)
 DW_BLOCKS_PER_SM = {1: 3, 16: 3, 32: 2, 64: 1}
+DW_S2_BLOCKS_PER_SM = {16: 2, 32: 1, 64: 1}
 
 
 def swizzle(nc: int, v, c):
@@ -144,42 +226,59 @@ def swizzle(nc: int, v, c):
     return c ^ ((v // (8 // nc)) & (nc - 1))
 
 
-def dw_tile(ci: int) -> tuple[int, int, int]:
-    """(TZ, TY, TX) output voxels of one tile; K is walked one x row of 16
+def dw_nb(ci: int, stride: int = 1) -> int:
+    """Output channels per block (grid.y slices Co): 16 at stride 1; at
+    stride 2, 32 (x's halo staged once per 32 channels) but 16 at Ci = 64,
+    where the accumulators would not fit."""
+    return 32 if stride == 2 and ci != 64 else DW_NB
+
+
+def dw_tile(ci: int, stride: int = 1) -> tuple[int, int, int]:
+    """(TZ, TY, TX) voxels of g in one tile; K is walked one x row of 16
     voxels (a k-row) at a time, TZ * TY k-rows per tile."""
+    if stride == 2:
+        return 2, (2 if ci == 64 else 4), DW_TX
     return (1 if ci == 64 else 2), 8, DW_TX
 
 
-def dw_halo(ci: int) -> tuple[int, int, int]:
-    """(HZ, HY, HX) voxels of x staged per tile: the tile and one voxel
-    around it, origin at the tile's (z0 - 1, y0 - 1, x0 - 1)."""
-    tz, ty, tx = dw_tile(ci)
+def dw_halo(ci: int, stride: int = 1) -> tuple[int, int, int]:
+    """(HZ, HY, HX) voxels of x staged per tile.  Stride 1: the tile and
+    one voxel around it, origin at the tile's (z0 - 1, y0 - 1, x0 - 1).
+    Stride 2: ``s2_halo``, each row split by x parity."""
+    tz, ty, tx = dw_tile(ci, stride)
+    if stride == 2:
+        return s2_halo(tz, ty)
     return tz + 2, ty + 2, tx + 2
 
 
-def dw_tiles(dims, ci: int) -> list[tuple[int, int, int]]:
-    """(z0, y0, x0) of every tile, in tile-index order (x fastest); block
-    b of a co slice takes tiles b, b + nblk, ..."""
-    tz, ty, tx = dw_tile(ci)
+def dw_tiles(dims, ci: int, stride: int = 1) -> list[tuple[int, int, int]]:
+    """(z0, y0, x0) of every tile of g's ``dims``, in tile-index order (x
+    fastest); block b of a co slice takes tiles b, b + nblk, ..."""
+    tz, ty, tx = dw_tile(ci, stride)
     d, h, w = dims
     return [(z, y, x) for z in range(0, d, tz) for y in range(0, h, ty) for x in range(0, w, tx)]
 
 
-def dw_ntiles(dims, ci: int) -> int:
-    """``len(dw_tiles(dims, ci))``, without listing them."""
-    return math.prod(-(-n // t) for n, t in zip(dims, dw_tile(ci)))
+def dw_ntiles(dims, ci: int, stride: int = 1) -> int:
+    """``len(dw_tiles(dims, ci, stride))``, without listing them."""
+    return math.prod(-(-n // t) for n, t in zip(dims, dw_tile(ci, stride)))
 
 
-def dw_tap_offset(tap: int, ci: int) -> int:
+def dw_tap_offset(tap: int, ci: int, stride: int = 1) -> int:
     """Halo voxel offset of tap (dz, dy, dx) = (tap // 9, tap // 3 % 3,
     tap % 3): the tap's A is the halo read that many voxels further on."""
+    if stride == 2:
+        tz, ty, _ = dw_tile(ci, 2)
+        return s2_tap_offset(tap, tz, ty)
     _, hy, hx = dw_halo(ci)
     return ((tap // 9) * hy + (tap // 3) % 3) * hx + tap % 3
 
 
-def dw_krow_base(r: int, ci: int) -> int:
+def dw_krow_base(r: int, ci: int, stride: int = 1) -> int:
     """Halo voxel of k-row ``r`` (tile row (r // TY, r % TY)) at x 0."""
-    _, ty, _ = dw_tile(ci)
+    tz, ty, _ = dw_tile(ci, stride)
+    if stride == 2:
+        return s2_row_base(r, tz, ty)
     _, hy, hx = dw_halo(ci)
     return ((r // ty) * hy + r % ty) * hx
 
@@ -209,11 +308,11 @@ def dw_warps(ci: int) -> int:
 
 
 def dw_warp_jobs(ci: int, warp: int) -> list[int]:
-    """The jobs ``warp`` owns.  Stride 1: the tap column (dz, dx) = (warp
-    // 3, warp % 3), its three dy taps and every m-tile (a window of three
+    """The jobs ``warp`` owns, at either stride: the tap column (dz, dx) =
+    (warp // 3, warp % 3), its three dy taps and every m-tile (a window of
     A fragments slides down the k-rows of a z plane, halo row y + dy
-    serving tap dy at k-row y).  The entry: both jobs, the warp taking
-    the k-rows r = warp + 8 i instead."""
+    serving tap dy at k-row y at stride 1, row 2y + dy at stride 2).  The
+    entry: both jobs, the warp taking the k-rows r = warp + 8 i instead."""
     if ci == 1:
         return [0, 1]
     dz, dx = divmod(warp, 3)
@@ -221,16 +320,23 @@ def dw_warp_jobs(ci: int, warp: int) -> list[int]:
     return [(dz * 9 + dy * 3 + dx) * mt_n + mt for mt in range(mt_n) for dy in range(3)]
 
 
-def dw_warp_krows(ci: int, warp: int) -> list[int]:
-    tz, ty, _ = dw_tile(ci)
+def dw_warp_krows(ci: int, warp: int, stride: int = 1) -> list[int]:
+    tz, ty, _ = dw_tile(ci, stride)
     return list(range(warp, tz * ty, DWE_WARPS)) if ci == 1 else list(range(tz * ty))
 
 
-def dw_blocks(dims, ci: int, co: int, n_sm: int) -> int:
-    """Blocks per co slice (grid.x): one wave over the card, no more than
-    there are tiles."""
-    per_slice = DW_BLOCKS_PER_SM[ci] * n_sm // (co // DW_NB)
-    return max(1, min(dw_ntiles(dims, ci), per_slice))
+def dw_blocks(dims, ci: int, co: int, n_sm: int, stride: int = 1) -> int:
+    """Blocks per co slice (grid.x) for g's ``dims``: one wave over the
+    card, no more than there are tiles; at stride 2 also few enough that
+    the partials (``dw_partial_shape``) stay within half the bytes of the
+    bf16 inputs x and g (at the flagship's level 2, 27 x 64 x 128 f32 per
+    block against 20.6 MB of inputs)."""
+    per_sm = DW_S2_BLOCKS_PER_SM[ci] if stride == 2 else DW_BLOCKS_PER_SM[ci]
+    nblk = min(dw_ntiles(dims, ci, stride), per_sm * n_sm // (co // dw_nb(ci, stride)))
+    if stride == 2:
+        in_bytes = 2 * (8 * ci + co) * math.prod(dims)
+        nblk = min(nblk, in_bytes // 2 // (27 * ci * co * 4))
+    return max(1, nblk)
 
 
 def dw_partial_shape(nblk: int, ci: int, co: int) -> tuple[int, int, int, int]:
