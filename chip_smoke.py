@@ -8,12 +8,14 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
 2. Each kernel wrapper against its plain PyTorch twin on the card at the
    flagship U-Net's shapes (``default_architecture(3)`` on the 192x224x192
    grid), in bf16 and in f32, with its time, the twin's, one PyTorch
-   library call's and the least time the card could take.  bf16 K1 and
-   K3 run on the tensor cores (``csrc/conv_tc.cu``); their uses are also
-   timed at every kernel level (``tc_ms_c*``; K3 beside ``bound_ms_c*``)
-   and in f32 on the FMA kernels (``f32_fma_ms``).  Every wrapper that
-   returns stats (K1 s1, the entry, K3) gives the same (y, stats) bits
-   over two calls, in bf16 and in f32.
+   library call's and the least time the card could take.  bf16 K1, K3
+   and K4 run on the tensor cores (``csrc/conv_tc.cu``,
+   ``csrc/trans_tc.cu``); their uses are also timed at every kernel level
+   (``tc_ms_c*``; K3 and K4 beside ``bound_ms_c*`` and their own device
+   time ``device_ms_c*``) and in f32 on the FMA kernels (``f32_fma_ms``).
+   Every wrapper that returns stats (K1 s1, the entry, K3) gives the same
+   (y, stats) bits over two calls, in bf16 and in f32, and so does K4 its
+   y.
 3. The full-width forward through the kernels against the all-twin
    forward and the plain unfused forward (f32), and in bf16; its time,
    and its device time by kernel from ``torch.profiler``.
@@ -25,10 +27,10 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    share of ``infer``.
 5. Each backward kernel (K1 as dx, K5-K9, K2 ``norm_bwd``) against its
    twin at the flagship shapes, in bf16 and in f32, with its times and
-   bound as in phase 2 (K1 dx, K5, K6 and K7 in bf16 on the tensor
-   cores; K5 and K6 also per level (and K5 at the entry), ``tc_ms_c*``,
-   ``tc_ms_entry``, beside ``bound_ms_*`` and their f32 FMA route,
-   ``f32_fma_ms``, and bitwise over two launches).
+   bound as in phase 2 (K1 dx, K5, K6, K7 and K9 in bf16 on the tensor
+   cores; K5, K6 and K9 also per level (and K5 at the entry),
+   ``tc_ms_c*``, ``tc_ms_entry``, beside ``bound_ms_*`` and their f32 FMA
+   route, ``f32_fma_ms``, and bitwise over two launches).
 6. The train step (``build_train_step``) at full width on two items it
    synthesizes from synthetic phantoms (contrast simulation and the
    default augmentation, with rubber stamps): every gradient of an f32
@@ -39,7 +41,7 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    asked for its deterministic algorithms there); the bf16
    step against the f32 one; three bf16 steps with the loss falling;
    each kernel's launches in one step (counts set to 0 just before it;
-   every bf16 K1, K3, K5, K6 and K7 launch on the tensor cores,
+   every bf16 K1, K3, K4, K5, K6, K7 and K9 launch on the tensor cores,
    ``tc_launches``), the step's synthesis / forward / backward /
    optimizer split, its device busy share and top kernels, and its peak
    memory.
@@ -57,8 +59,8 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    kernels.)
 8. The CLI on the card: ``--action train`` on a synthetic BIDS directory
    with one 182x218x182 1 mm template (3 epochs of 2 items, the default
-   augmentation, launches counted around it, every bf16 K1, K3, K5, K6
-   and K7 launch on the tensor cores), its resume at epoch 3,
+   augmentation, launches counted around it, every bf16 K1, K3, K4, K5,
+   K6, K7 and K9 launch on the tensor cores), its resume at epoch 3,
    ``--action evaluate`` with the final model; then the convergence
    check of tests/test_convergence.py (validation dice error down by more
    than 40 %, template dice above 0.8).
@@ -378,9 +380,12 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
                 if tc and dtype == torch.bfloat16:
                     require(repeatable(lambda: wrapper(x, g)), f"{name} {ca}->{cb} repeat")
                     errs["device_ms_" + lvl] = device_ms(lambda: wrapper(x, g), tc)
-                    nx, ng = x.numel() // ca, g.numel() // cb
-                    errs["bound_ms_" + lvl] = max(2 * (ca * nx + cb * ng) / HBM_BYTES_PER_S,
-                                                  2 * 27 * ca * cb * ng / BF16_TENSOR_FLOPS) * 1e3
+                    # ks^3 taps, each a GEMM over the voxels of the smaller
+                    # volume (g's at stride 2, x's for the transposed conv)
+                    nx, ng, taps = x.numel() // ca, g.numel() // cb, got[0, 0].numel()
+                    errs["bound_ms_" + lvl] = max(
+                        2 * (ca * nx + cb * ng) / HBM_BYTES_PER_S,
+                        2 * taps * ca * cb * min(nx, ng) / BF16_TENSOR_FLOPS) * 1e3
                 if i == 0 and dtype == torch.bfloat16:
                     errs["bf16_abs"] = abs_err(got, ref)
                     timing = (timed_ms(lambda: wrapper(x, g)), timed_ms(lambda: plain_fn(x, g)),
@@ -418,13 +423,14 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
                                   [False, True, False]),
              2 * 16 * nvox(S0) + 2 * 32 * nvox(S1), 2 * 27 * 16 * 32 * nvox(S1),
              src="unet_studio_tpu_torch/csrc/conv_tc.cu", tc="dw_s2_tc_kernel")
-    # K9: the transposed conv's dW, x at level l+1 (2C), g at level l (C):
-    # the dW kernel with A = g and B = x
+    # K9: the transposed conv's dW, x at level l+1 (2C), g at level l (C);
+    # its twin is the dW twin with A = g and B = x
     dw_phase("conv_trans2x_dw", K.conv_trans2x_dw, dw_plain(2, 2, 0, swap=True),
              ((S1, 32, S0, 16), (S2, 64, S1, 32)), "unet_studio_tpu/ops/packed.py:782",
              lambda x, g: lib_bwd(g, x, weight((32, 16, 2, 2, 2), x), 2, 0, True,
                                   [False, True, False]),
-             2 * 16 * nvox(S0) + 2 * 32 * nvox(S1), 2 * 8 * 16 * 32 * nvox(S1))
+             2 * 16 * nvox(S0) + 2 * 32 * nvox(S1), 2 * 8 * 16 * 32 * nvox(S1),
+             src="unet_studio_tpu_torch/csrc/trans_tc.cu", tc="dw_trans_tc_kernel")
 
     # K7: the stride-2 conv's dx, g at level l+1 (2C) -> dx at level l (C)
     errs = {}
@@ -618,7 +624,7 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     log("tensor-core launches in the bf16 step: " + json.dumps(tc))
     require(all(v > 0 for v in tc.values())
             and all(tc[k] == records[k][0]["launches"] for k in tc),
-            "a bf16 K1, K3, K5, K6 or K7 launch of the train step missed the tensor cores")
+            "a bf16 K1, K3, K4, K5, K6, K7 or K9 launch of the train step missed the tensor cores")
     losses = [float(loss1)]
     step_profile = {}
 
@@ -629,8 +635,9 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
 
     step_profile = profile_forward(second, top=30, grad=True, watch=(
         "s2_tc_kernel", "dw_s2_tc_kernel", "conv3_tc_kernel", "entry_tc_kernel", "dw_tc_kernel",
-        "dw_entry_tc_kernel", "s2dx_tc_kernel", "dw_reduce_kernel", "channel_reduce_kernel",
-        "trans2x_kernel", "trans2x_dx_kernel", "conv_dw_kernel", "warp_kernel", "max_kernel"))
+        "dw_entry_tc_kernel", "s2dx_tc_kernel", "trans2x_tc_kernel", "dw_trans_tc_kernel",
+        "dw_reduce_kernel", "channel_reduce_kernel", "trans2x_dx_kernel", "warp_kernel",
+        "max_kernel"))
     torch.cuda.synchronize()
     t = time.perf_counter()
     opt_state, _, loss3 = step16(opt_state, images, labels, None, 1e-2, seeds=seeds)
@@ -901,7 +908,8 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
         if w in K.TC_WRAPPERS:
             rec["tc_launches_cli_train"] = w.tc_launches
     require(all(w.tc_launches == w.launches for _, w in records.values() if w in K.TC_WRAPPERS),
-            "a bf16 K1, K3, K5, K6 or K7 launch of the CLI train run missed the tensor cores")
+            "a bf16 K1, K3, K4, K5, K6, K7 or K9 launch of the CLI train run missed the tensor "
+            "cores")
     rc, out, resume_s = run_cli(["--action", "train", "--model", model + ".final.nz",
                                  "--bids", bids, "--batch_size", "2", "--epoch", "4",
                                  "--device", dev])
@@ -1001,7 +1009,8 @@ def main() -> int:
     report = _cuda.ptxas_report()
     print(json.dumps({"ptxas": report}), flush=True)
     for k in report:
-        if "s2_tc_kernel" in k["kernel"]:  # K3 and K6
+        if any(n in k["kernel"] for n in ("s2_tc_kernel", "trans2x_tc_kernel",
+                                          "dw_trans_tc_kernel")):  # K3, K6, K4, K9
             log(f"ptxas {k['kernel']}: {'; '.join(k['info'])}")
 
     # ---- 2. kernels vs twins at the flagship shapes -------------------------
@@ -1042,9 +1051,9 @@ def main() -> int:
                           "library_ms": library_ms, "bound_ms": rec["bound_ms"],
                           "bound_by": rec["bound_by"]}), flush=True)
 
-    conv_src = "unet_studio_tpu_torch/csrc/conv.cu"
-    # bf16 K1 and K7 run on the tensor cores; ``f32_fma_ms`` times the f32
-    # call of the same shapes on the FMA kernels beside them
+    # bf16 K1, K3 and K7 run on the tensor cores (K4 and K9 too, in
+    # trans_tc.cu); ``f32_fma_ms`` times the f32 call of the same shapes on
+    # the FMA kernels beside them
     tc_src = "unet_studio_tpu_torch/csrc/conv_tc.cu"
 
     # K1, C -> C
@@ -1180,31 +1189,45 @@ def main() -> int:
     record("conv3x3x3_s2", tc_src, "unet_studio_tpu/ops/packed.py:227",
            K.conv3x3x3_s2, errs, *timing, BF16_TENSOR_FLOPS, fma)
 
-    # K4, 2C -> C transposed conv
+    # K4, 2C -> C transposed conv: 64 -> 32 (level 2 -> 1) and 32 -> 16
+    # (level 1 -> 0); bf16 on the tensor cores, each pair timed beside its
+    # bound and its own device time, f32 on the FMA kernel (``f32_fma_ms_c*``)
     errs = {}
     for dims, co in ((S2, 32), (S1, 16)):
+        ci, n_in = 2 * co, nvox(dims)
+        nbytes, ops = 2 * ci * n_in + 2 * co * 8 * n_in, 2 * ci * co * 8 * n_in
         for dtype, tol, tag in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
-            x = rnd((*dims, 2 * co), dtype)
-            w = rnd((2 * co, co, 2, 2, 2), scale=(2 * co) ** -0.5)
-            b, p = rnd(co, scale=0.1), pro(2 * co)
+            x = rnd((*dims, ci), dtype)
+            w = rnd((ci, co, 2, 2, 2), scale=ci ** -0.5)
+            b, p = rnd(co, scale=0.1), pro(ci)
             y = K.conv_trans2x(x, w, b, prologue=p)
             yr = K.conv_trans2x_plain(x, w, b, p)
             e = rel_err(y, yr)
             require(e < tol, f"conv_trans2x Co={co} {tag}: err {e}")
+            require(rel_err(K.conv_trans2x(x, w, b), K.conv_trans2x_plain(x, w, b)) < tol,
+                    f"conv_trans2x Co={co} {tag} without prologue")
+            require(repeatable(lambda: K.conv_trans2x(x, w, b, prologue=p)),
+                    f"conv_trans2x Co={co} {tag}: y differs over two calls")
             errs[f"{tag}_rel_co{co}"] = e
+            if dtype == torch.bfloat16:
+                errs[f"tc_ms_c{ci}"] = timed_ms(lambda: K.conv_trans2x(x, w, b, prologue=p))
+                errs[f"device_ms_c{ci}"] = device_ms(
+                    lambda: K.conv_trans2x(x, w, b, prologue=p), "trans2x_tc_kernel")
+                errs[f"bound_ms_c{ci}"] = max(nbytes / HBM_BYTES_PER_S,
+                                              ops / BF16_TENSOR_FLOPS) * 1e3
+            else:
+                errs[f"f32_fma_ms_c{ci}"] = timed_ms(lambda: K.conv_trans2x(x, w, b, prologue=p))
             if co == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(y, yr)
-                ms = timed_ms(lambda: K.conv_trans2x(x, w, b, prologue=p))
                 plain_ms = timed_ms(lambda: K.conv_trans2x_plain(x, w, b, p))
                 xl = K.ncdhw(x)
                 lib_ms = timed_ms(lambda: torch.nn.functional.conv_transpose3d(
                     xl, w.to(dtype), b.to(dtype), stride=2))
-                n_in = nvox(dims)
-                timing = (ms, plain_ms, lib_ms, 2 * (2 * co) * n_in + 2 * co * 8 * n_in,
-                          2 * 2 * co * co * 8 * n_in)
+                timing = (errs["tc_ms_c32"], plain_ms, lib_ms, nbytes, ops)
             del x, y, yr
-    record("conv_trans2x", conv_src, "unet_studio_tpu/ops/packed.py:439",
-           K.conv_trans2x, errs, *timing, BF16_TENSOR_FLOPS)
+    record("conv_trans2x", "unet_studio_tpu_torch/csrc/trans_tc.cu",
+           "unet_studio_tpu/ops/packed.py:439", K.conv_trans2x, errs, *timing,
+           BF16_TENSOR_FLOPS, {"f32_fma_ms": errs["f32_fma_ms_c32"]})
 
     # K2 sum_sq
     errs = {}
@@ -1268,7 +1291,7 @@ def main() -> int:
     print(json.dumps({"forward_profile": profile_forward(
         lambda: U.forward_fused(spec, params, x, compute_dtype=torch.bfloat16,
                                 level0_only=True),
-        watch=("s2_tc_kernel", "conv3_tc_kernel", "entry_tc_kernel", "trans2x_kernel",
+        watch=("s2_tc_kernel", "conv3_tc_kernel", "entry_tc_kernel", "trans2x_tc_kernel",
                "channel_reduce_kernel", "dw_reduce_kernel"))}), flush=True)
     del ref, kb16, x
     torch.cuda.empty_cache()
@@ -1325,7 +1348,7 @@ def main() -> int:
             "a kernel of the evaluate path was not launched")
     require(all(r["tc_launches_evaluate"] == r["launches_evaluate"] for r, w in records.values()
                 if w in K.TC_WRAPPERS),
-            "a bf16 K1 or K3 of the evaluate path left the tensor cores")
+            "a bf16 K1, K3 or K4 of the evaluate path left the tensor cores")
     out = read_nifti(src + ".result.nii.gz")
     require(out.data.shape == native, f"result shape {out.data.shape}")
     labels = set(np.unique(out.data).tolist())

@@ -3,8 +3,9 @@
 wrappers build before a launch, read back as ``mma.m16n8k16`` reads it,
 through a plain im2col GEMM in the kernels' K order, against the convs'
 twins; and K3's tile map (its parity-split halo, lane-level ldmatrix,
-stats fold) replayed as the kernel runs it.  The kernels themselves run in
-tests/test_torch_cuda_kernels.py.
+stats fold) and K4's (a warp's k-rows, its parity slices, the swizzled
+staging of its output spans) replayed as the kernels run them.  The
+kernels themselves run in tests/test_torch_cuda_kernels.py.
 """
 
 import numpy as np
@@ -149,7 +150,9 @@ def test_s2dx_class_gemms_equal_the_twin(ci, co, half):
                                           ("s2dx", (32, 16, 3, 3, 3)),
                                           ("s2dx", (128, 64, 3, 3, 3)),
                                           ("k3", (32, 16, 3, 3, 3)),
-                                          ("k3", (128, 64, 3, 3, 3))])
+                                          ("k3", (128, 64, 3, 3, 3)),
+                                          ("k4", (32, 16, 2, 2, 2)),
+                                          ("k4", (64, 32, 2, 2, 2))])
 def test_pack_weights_is_one_gather_of_pack_b(layout, shape):
     """The wrappers' cached-index gather equals building B and packing it,
     bit for bit, on a strided view too (dx packs flip_transpose(w))."""
@@ -306,3 +309,103 @@ def test_k3_halo_slots():
         for dx in range(3):
             assert L.s2_slot_x(L.s2_slot(dx) + m) - 1 == 2 * m + dx - 1
     assert sorted(L.s2_slot_x(sl) for sl in range(L.S2_HX)) == list(range(L.S2_HX))
+
+
+# ---------------------------------------------------------------------------
+# K4 (trans2x_tc_kernel): one GEMM per warp k-row, walked by parity slice
+# ---------------------------------------------------------------------------
+
+
+def replay_k4(x, prologue, w, b, grid: int = 3):
+    """K4's output as trans2x_tc_kernel computes it: warp w of block blk
+    takes the k-rows blk * TC_WARPS + w, then every grid * TC_WARPS; a
+    k-row's 16 voxels are staged swizzled (zero past the row's end) and
+    the prologue runs on all of them; the A fragments come lane by lane
+    through ldmatrix; each parity slice s takes its B columns of
+    ``pack_weights(w, "k4")`` in fragment order, adds the bias, goes
+    through the swizzled staging rows and is stored as one span of the
+    output (``trans_span``), rows past the row's end left out.  Every
+    output value not written stays NaN."""
+    d, h, wd, ci = x.shape
+    co = w.shape[1]
+    nc, nco = ci // 8, co // 4
+    packed = L.pack_weights(w, "k4")
+    tiles = L.k4_tiles((d, h, wd))
+    y = torch.full((8 * d * h * wd * co,), float("nan"))
+    row16 = LANE & 15
+    for blk in range(grid):
+        for warp in range(L.TC_WARPS):
+            for z, yy, x0 in tiles[blk * L.TC_WARPS + warp::grid * L.TC_WARPS]:
+                nv = min(16, wd - x0)
+                run = F.pad(x[z, yy, x0:x0 + nv], (0, 0, 0, 16 - nv))
+                phys = store_swizzled(K.apply_prologue(run, prologue).reshape(16, nc, 8))
+                a = [ldsm_a(phys, row16, ks * 2 + (LANE >> 4)) for ks in range(ci // 16)]
+                for s in range(4):
+                    acc = b.repeat(2).expand(16, 2 * co).clone()  # columns (rx, co)
+                    for ks in range(ci // 16):
+                        acc += a[ks] @ fragment_matrix(packed[ks:ks + 1, s * co // 8:
+                                                              (s + 1) * co // 8])
+                    stg = store_swizzled(acc.reshape(16, nco, 8))
+                    span = L.trans_span(z, yy, x0, s, (d, h, wd), co)
+                    for m in range(nv):
+                        chunks = stg[m, L.swizzle(nco, m, torch.arange(nco))]
+                        y[span + m * 2 * co:span + (m + 1) * 2 * co] = chunks.reshape(-1)
+    return y.reshape(2 * d, 2 * h, 2 * wd, co)
+
+
+@pytest.mark.parametrize("ci,co,dims,act", [(32, 16, (2, 3, 17), "leaky_relu"),
+                                            (32, 16, (1, 2, 34), None),
+                                            (64, 32, (2, 2, 17), "relu"),
+                                            (64, 32, (1, 3, 34), "leaky_relu")])
+def test_k4_gemm_through_the_map_equals_the_twin(ci, co, dims, act):
+    """trans2x_tc_kernel's k-rows (ragged W), slices and output spans
+    through the tc_layout map write every output voxel once and equal
+    conv_trans2x_plain, with and without the prologue."""
+    rng = np.random.default_rng(ci + sum(dims))
+    x, w, b = _t(rng, (*dims, ci)), _t(rng, (ci, co, 2, 2, 2), 0.2), _t(rng, co)
+    pro = None if act is None else (_t(rng, ci, 0.3) + 1.0, _t(rng, ci, 0.3), act)
+    assert L.k4_weight_matrix(w).shape == (ci, 8 * co)
+    y = replay_k4(x, pro, w, b)
+    ref = K.conv_trans2x_plain(x, w, b, pro)
+    assert y.shape == ref.shape and not y.isnan().any()
+    assert _rel(y, ref) < TOL
+
+
+@pytest.mark.parametrize("ci,co", L.TRANS_PAIRS)
+def test_k4_shared_memory_phases_hit_distinct_banks(ci, co):
+    """trans2x_tc_kernel's A ldmatrix (8 lanes a phase) and its 16-byte
+    staging reads (8 lanes a phase) hit 8 distinct 16-byte bank groups;
+    its 4-byte staging writes (lane (g, t) at rows g and g + 8, n-tile
+    nt's chunk) hit 32 distinct banks."""
+    nc, nco = ci // 8, co // 4
+    row16 = LANE & 15
+
+    def distinct_phases(groups):
+        return all(len(set(groups[8 * p:8 * p + 8])) == 8 for p in range(4))
+
+    for ks in range(ci // 16):
+        c = ks * 2 + (LANE >> 4)
+        assert distinct_phases(((row16 * nc + L.swizzle(nc, row16, c)) % 8).tolist())
+    gq, tq = LANE // 4, LANE % 4
+    for nt in range(nco):
+        for m in (gq, gq + 8):
+            bank = ((m * nco + L.swizzle(nco, m, torch.full_like(m, nt))) * 4 + tq) % 32
+            assert len(set(bank.tolist())) == 32
+    for i0 in range(0, 16 * nco, 32):
+        m, c = (i0 + LANE) // nco, (i0 + LANE) % nco
+        assert distinct_phases(((m * nco + L.swizzle(nco, m, c)) % 8).tolist())
+
+
+def test_k4_tiles_and_spans():
+    """k-rows run x fastest, 16 input x each; a slice's span of input
+    voxel m starts at output (2z + rz, 2y + ry, 2(x0 + m))."""
+    dims, co = (2, 3, 40), 16
+    assert L.k4_tiles(dims)[:4] == [(0, 0, 0), (0, 0, 16), (0, 0, 32), (0, 1, 0)]
+    assert len(L.k4_tiles(dims)) == 2 * 3 * 3
+    out = torch.arange(8 * 2 * 3 * 40 * co).reshape(4, 6, 80, co)
+    for z, y, x0 in L.k4_tiles(dims):
+        for s in range(4):
+            rz, ry = s >> 1, s & 1
+            for m in range(min(16, 40 - x0)):
+                start = L.trans_span(z, y, x0, s, dims, co) + m * 2 * co
+                assert int(out[2 * z + rz, 2 * y + ry, 2 * (x0 + m), 0]) == start

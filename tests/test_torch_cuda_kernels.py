@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1-K12, all of K2's modes) against their plain
 PyTorch twins on the card, at small shapes with odd sizes; bf16 K1, K3,
-K5, K6 and K7 run on the tensor-core route (``test_tc_*`` add whole-tile
-shapes); K2's modes, the weight gradients and the convs' stats are
+K4, K5, K6, K7 and K9 run on the tensor-core route (``test_tc_*`` add
+whole-tile shapes); K2's modes, the weight gradients and the convs' stats are
 bitwise repeatable, K2 on two streams at once too, and need no zeroed
 output.  These tests need an NVIDIA GPU and skip without one; run them
 there with
@@ -340,9 +340,22 @@ def test_tc_rejects(dev):
         with pytest.raises(ValueError):
             K.conv3x3x3_s2_dw(xs, torch.zeros((2, 2, 2, co), device=dev, dtype=bf))
     assert (K.conv3x3x3_s2.launches, K.conv3x3x3_s2_dw.launches) == (n3, n6)
+    # K4 and K9 off TC_TRANS (no FMA fallback in bf16)
+    n4, n9 = K.conv_trans2x.launches, K.conv_trans2x_dw.launches
+    for ci, co in ((16, 16), (32, 32), (128, 64), (64, 16)):
+        xt = torch.zeros((2, 2, 2, ci), device=dev, dtype=bf)
+        with pytest.raises(ValueError):
+            K.conv_trans2x(xt, torch.zeros(ci, co, 2, 2, 2, device=dev), torch.zeros(co, device=dev))
+        with pytest.raises(ValueError):
+            K.conv_trans2x_dw(xt, torch.zeros((4, 4, 4, co), device=dev, dtype=bf))
+    assert (K.conv_trans2x.launches, K.conv_trans2x_dw.launches) == (n4, n9)
     n0 = K.conv3x3x3_s1.tc_launches
     K.conv3x3x3_s1(x.float(), torch.zeros(32, 16, 3, 3, 3, device=dev), torch.zeros(32, device=dev))
     assert K.conv3x3x3_s1.tc_launches == n0
+    t4 = K.conv_trans2x.tc_launches
+    K.conv_trans2x(torch.zeros((2, 2, 2, 32), device=dev), torch.zeros(32, 16, 2, 2, 2, device=dev),
+                   torch.zeros(16, device=dev))
+    assert K.conv_trans2x.tc_launches == t4
 
 
 def test_backward_rejects(dev):
@@ -551,6 +564,41 @@ def test_tc_s2_dw(dev, ci, co, half):
     assert _rel(got, ref) < SUM_TOL
     assert torch.equal(got, K.conv3x3x3_s2_dw(x, g))
     assert (K.conv3x3x3_s2_dw.launches, K.conv3x3x3_s2_dw.tc_launches) == (n0 + 2, t0 + 2)
+
+
+@pytest.mark.parametrize("ci,co", [(32, 16), (64, 32)])
+@pytest.mark.parametrize("act", [None, "relu", "leaky_relu"])
+@pytest.mark.parametrize("dims", [(3, 5, 7), (2, 3, 17), (2, 4, 32), (1, 3, 34)])
+def test_tc_trans(dev, ci, co, act, dims):
+    """bf16 K4 on the tensor cores: ragged and whole k-rows (W = 7, 17, 32,
+    34), with and without each prologue act; tc_launches counts."""
+    rng = np.random.default_rng(ci + len(act or "") + sum(dims))
+    x = _t(rng, (*dims, ci), dev, torch.bfloat16)
+    w, b = _t(rng, (ci, co, 2, 2, 2), dev, scale=0.2), _t(rng, co, dev)
+    pro = None if act is None else _pro(rng, ci, dev, act)
+    n0, t0 = K.conv_trans2x.launches, K.conv_trans2x.tc_launches
+    y = K.conv_trans2x(x, w, b, prologue=pro)
+    assert y.shape == (2 * dims[0], 2 * dims[1], 2 * dims[2], co)
+    assert _rel(y, K.conv_trans2x_plain(x, w, b, pro)) < BF16_TOL
+    assert (K.conv_trans2x.launches, K.conv_trans2x.tc_launches) == (n0 + 1, t0 + 1)
+
+
+@pytest.mark.parametrize("ci,co", [(32, 16), (64, 32)])
+@pytest.mark.parametrize("dims", [(3, 5, 7), (2, 3, 17), (2, 4, 32), (5, 6, 34)])
+def test_tc_trans_dw(dev, ci, co, dims):
+    """bf16 K9 on the tensor cores against the per-tap matmul twin (x and
+    g swapped), ragged k-rows and a ragged last tile; two launches give
+    the same bits; tc_launches counts."""
+    rng = np.random.default_rng(ci + co + sum(dims))
+    x = _t(rng, (*dims, ci), dev, torch.bfloat16)
+    g = _t(rng, (2 * dims[0], 2 * dims[1], 2 * dims[2], co), dev, torch.bfloat16)
+    n0, t0 = K.conv_trans2x_dw.launches, K.conv_trans2x_dw.tc_launches
+    got = K.conv_trans2x_dw(x, g)
+    ref = K.conv_dw_plain(g, x, 2, 2, 0).reshape(2, 2, 2, co, ci).permute(4, 3, 0, 1, 2)
+    assert got.dtype == torch.float32 and got.shape == (ci, co, 2, 2, 2)
+    assert _rel(got, ref) < SUM_TOL
+    assert torch.equal(got, K.conv_trans2x_dw(x, g))
+    assert (K.conv_trans2x_dw.launches, K.conv_trans2x_dw.tc_launches) == (n0 + 2, t0 + 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,12 +1,13 @@
-"""The geometry of the bf16 tensor-core weight gradients K5 and K6
+"""The geometry of the bf16 tensor-core weight gradients K5, K6 and K9
 (``dw_tc_kernel`` and ``dw_s2_tc_kernel`` in
-``unet_studio_tpu_torch/csrc/conv_tc.cu``), on the CPU in f32: the
+``unet_studio_tpu_torch/csrc/conv_tc.cu``, ``dw_trans_tc_kernel`` in
+``csrc/trans_tc.cu``), on the CPU in f32: the
 tiles each block walks, the halo and a tap's voxel shift in it, the
 chunk swizzle, the rows each lane hands ``ldmatrix.trans``,
 the warps' jobs and the partial buffer, as ``ops/tc_layout.py`` gives
 them, replayed as the kernel runs them (shared memory stored swizzled,
 fragments gathered lane by lane and read back in the ``mma.m16n8k16``
-layout), against ``conv_dw_plain``.  The kernel itself runs in
+layout), against ``conv_dw_plain``.  The kernels themselves run in
 tests/test_torch_cuda_kernels.py.
 """
 
@@ -328,3 +329,130 @@ def test_dw_s2_grid_and_partials():
     assert 1 <= lvl2 <= n_sm // 8 and lvl2 * 27 * 64 * 128 * 4 <= in_bytes // 2
     assert L.dw_partial_shape(lvl2, 64, 128) == (lvl2, 27, 64, 128)
     assert L.dw_blocks((1, 4, 16), 32, 64, n_sm, 2) == 1
+
+
+# ---------------------------------------------------------------------------
+# K9 (dw_trans_tc_kernel): the transposed conv's weight gradient per k-row
+# and parity slice, no halo
+# ---------------------------------------------------------------------------
+
+
+def replay_trans_dw(x: torch.Tensor, g: torch.Tensor, nblk: int):
+    """K9's dW as dw_trans_tc_kernel computes it: block blk takes tiles
+    blk, blk + nblk, ...; a tile's k-rows of x and each k-row's 4 g spans
+    (``trans_span``, 16 rows of (rx, co)) staged swizzled, zero past a
+    row's end and past the last k-row; warp w's m-tiles of slice w // 2
+    through ldmatrix.trans lane by lane against the slice's B.  Returns
+    (dW (8, Ci, Co), tap (rz, ry, rx), the partial buffer)."""
+    dims, ci, co = tuple(x.shape[:3]), x.shape[-1], g.shape[-1]
+    d, h, wd = dims
+    tr, sn = L.trans_dw_krows(ci), 2 * co
+    nrows = d * h * -(-wd // 16)
+    lanes = L.dw_lane_rows()
+    gflat = g.reshape(-1)
+    part = torch.full(L.trans_dw_partial_shape(nblk, ci, co), float("nan"))
+    for blk in range(nblk):
+        acc = torch.zeros((L.TRANS_DW_WARPS, ci // 32, 16, sn))
+        for tile in range(blk, L.trans_dw_ntiles(dims, ci), nblk):
+            xs, gs = torch.zeros((tr * 16, ci)), torch.zeros((tr * 4 * 16, sn))
+            for r in range(tr):
+                if tile * tr + r >= nrows:
+                    continue
+                z, y, x0 = L.trans_dw_krow(tile * tr + r, dims)
+                nv = min(16, wd - x0)
+                xs[r * 16:r * 16 + nv] = x[z, y, x0:x0 + nv]
+                for s in range(4):
+                    off = L.trans_span(z, y, x0, s, dims, co)
+                    gs[(r * 4 + s) * 16:(r * 4 + s) * 16 + nv] = \
+                        gflat[off:off + nv * sn].reshape(nv, sn)
+            a_smem = store_swizzled(xs.reshape(-1, ci // 8, 8))
+            g_smem = store_swizzled(gs.reshape(-1, co // 4, 8))
+            for w in range(L.TRANS_DW_WARPS):
+                s = w // 2
+                for r in range(tr):
+                    bm = []
+                    for q in range(sn // 16):  # one ldmatrix.x4.trans per two n-tiles
+                        breg = ldsm_trans(g_smem, (r * 4 + s) * 16 + lanes["b_row"],
+                                          2 * q + lanes["b_chunk"])
+                        bm += [frag_b(breg[:, 0:2]), frag_b(breg[:, 2:4])]
+                    bm = torch.cat(bm, 1)
+                    for j, mt in enumerate(L.trans_dw_warp_mtiles(ci, w)):
+                        am = frag_a(ldsm_trans(a_smem, r * 16 + lanes["a_row"],
+                                               mt * 2 + lanes["a_chunk"]))
+                        acc[w, j] += am @ bm
+        for w in range(L.TRANS_DW_WARPS):
+            for j, mt in enumerate(L.trans_dw_warp_mtiles(ci, w)):
+                for rx in range(2):
+                    part[blk, (w // 2) * 2 + rx, mt * 16:(mt + 1) * 16] = \
+                        acc[w, j][:, rx * co:(rx + 1) * co]
+    dw = part[0].clone()
+    for blk in range(1, nblk):
+        dw += part[blk]
+    return dw, part
+
+
+@pytest.mark.parametrize("ci,co", L.TRANS_PAIRS)
+@pytest.mark.parametrize("dims,nblk", [((2, 3, 17), None), ((1, 2, 34), 3), ((3, 2, 16), 2)])
+def test_trans_dw_gemm_through_the_map_equals_the_twin(ci, co, dims, nblk):
+    """dw_trans_tc_kernel's tiles (ragged W, a ragged last tile), slices
+    and warp jobs through the tc_layout map equal conv_dw_plain with the
+    roles of x and g swapped, and the wrapper's reshape of its (tap, Ci,
+    Co) takes it to the transposed conv's (Ci, Co, 2, 2, 2)."""
+    rng = np.random.default_rng(ci + sum(dims))
+    x = _t(rng, (*dims, ci))
+    g = _t(rng, (2 * dims[0], 2 * dims[1], 2 * dims[2], co))
+    nblk = nblk or L.trans_dw_blocks(dims, ci, co, 2)
+    dw, part = replay_trans_dw(x, g, nblk)
+    assert not part.isnan().any()  # every block writes its whole partial
+    ref = K.conv_dw_plain(g, x, 2, 2, 0)  # (tap, Co, Ci)
+    assert dw.shape == (8, ci, co)
+    assert float((dw - ref.transpose(1, 2)).abs().max() / ref.abs().max()) < TOL
+    wt = dw.reshape(2, 2, 2, ci, co).permute(3, 4, 0, 1, 2)
+    ref_w = K.conv_trans2x_dw(x, g)
+    assert float((wt - ref_w).abs().max() / ref_w.abs().max()) < TOL
+
+
+@pytest.mark.parametrize("ci", [32, 64])
+def test_trans_dw_warps_own_each_job_once(ci):
+    """Each (slice, m-tile) falls to exactly one of the 8 warps."""
+    owned = sorted((w // 2, mt) for w in range(L.TRANS_DW_WARPS)
+                   for mt in L.trans_dw_warp_mtiles(ci, w))
+    assert owned == [(s, mt) for s in range(4) for mt in range(ci // 16)]
+
+
+@pytest.mark.parametrize("ci,co", L.TRANS_PAIRS)
+def test_trans_dw_ldmatrix_phases_hit_distinct_bank_groups(ci, co):
+    """Each 8-lane phase of every ldmatrix.trans of dw_trans_tc_kernel (A
+    at every k-row and m-tile, B at every k-row, slice and n-tile pair)
+    reads 8 distinct 16-byte bank groups."""
+    lanes = L.dw_lane_rows()
+
+    def groups(row, chunk, nc):
+        return ((row * nc + L.swizzle(nc, row, chunk)) % 8).tolist()
+
+    reads = []
+    for r in range(L.trans_dw_krows(ci)):
+        reads += [(r * 16 + lanes["a_row"], 2 * mt + lanes["a_chunk"], ci // 8)
+                  for mt in range(ci // 16)]
+        reads += [((r * 4 + s) * 16 + lanes["b_row"], 2 * q + lanes["b_chunk"], co // 4)
+                  for s in range(4) for q in range(co // 8)]
+    for row, chunk, nc in reads:
+        bank = groups(row, chunk, nc)
+        for phase in range(4):
+            assert len(set(bank[8 * phase:8 * phase + 8])) == 8
+
+
+def test_trans_dw_grid_and_partials():
+    """One wave over the card at level 0; at level 1 (64 -> 32) few enough
+    blocks that the (nblk, 8, Ci, Co) partials stay within an eighth of
+    the bytes of x and g; never more blocks than tiles."""
+    n_sm = 132
+    assert L.trans_dw_krows(32) == 8 and L.trans_dw_krows(64) == 4
+    assert L.trans_dw_ntiles((96, 112, 96), 32) == 96 * 112 * 6 // 8
+    assert L.trans_dw_blocks((96, 112, 96), 32, 16, n_sm) == 2 * n_sm
+    lvl1 = L.trans_dw_blocks((48, 56, 48), 64, 32, n_sm)
+    in_bytes = 2 * (64 + 8 * 32) * 48 * 56 * 48
+    assert n_sm <= lvl1 < 2 * n_sm and lvl1 * 8 * 64 * 32 * 4 <= in_bytes // 8
+    assert L.trans_dw_blocks((1, 2, 34), 32, 16, n_sm) == 1
+    assert L.trans_dw_partial_shape(5, 64, 32) == (5, 8, 64, 32)
+    assert L.trans_dw_krow(7, (2, 3, 40)) == (0, 2, 16)

@@ -117,8 +117,9 @@ def test_k3_s2(dims, c):
         assert _rel(s[r].numpy(), _fold(st[r], 2 * c)) < 1e-4
 
 
-def test_k4_trans():
-    dims, ci, co = (2, 4, 32), 32, 16
+@pytest.mark.parametrize("ci,co", [(32, 16), (64, 32)])
+def test_k4_trans(ci, co):
+    dims = (2, 4, 32)
     x, w, wt, b, a_p, b_p = _case(5, dims, ci, co, wshape="trans")
     y3 = P.conv_trans2x_up(P.pack(jnp.asarray(x)), jnp.asarray(w), jnp.asarray(b), (*dims, ci),
                            prologue=_jax_pro(a_p, b_p, "leaky_relu", ci))

@@ -127,8 +127,9 @@ def test_conv_s2_vjp(dims, c):
     assert _rel(dbt, db) < 1e-4
 
 
-def test_conv_trans2x_vjp():
-    dims, ci, co = (2, 4, 32), 32, 16
+@pytest.mark.parametrize("ci,co", [(32, 16), (64, 32)])
+def test_conv_trans2x_vjp(ci, co):
+    dims = (2, 4, 32)
     rng = np.random.default_rng(5)
     x = rng.standard_normal((*dims, ci)).astype(np.float32)
     w = (rng.standard_normal((ci, 2, 2, 2, co)) * 0.2).astype(np.float32)

@@ -23,7 +23,8 @@
 // K4 conv_trans2x (replaces unet_studio_tpu/ops/packed.py:439
 //    _trans_kernel): ks2/stride-2 transposed conv; output voxel o reads
 //    input voxel o/2 with weight parity o%2, so there is no halo and no
-//    padding; bf16 and f32.
+//    padding; here in f32 only: bf16 K4 runs on the tensor cores
+//    (trans_tc.cu).
 //
 // What bounds them on the H100 (bf16, one input read and one output
 // written): a C->C conv does 2*27*C*C operations per 4*C bytes of voxel
@@ -38,7 +39,7 @@
 // per thread, the weights of a 16-channel input chunk staged in shared
 // memory and read as broadcasts, each voxel's channel run read with
 // 16-byte loads.  They serve f32, where the tensor cores would mean TF32
-// (the exact oracle of the bf16 kernels), and K4 in both dtypes.
+// (the exact oracle of the bf16 kernels).
 
 #include "common.cuh"
 
@@ -249,20 +250,15 @@ int unet_conv3(const void* xa, const void* pa_a, const void* pb_a, int act_a, co
   return unet_dw_reduce(part, rows, 2L * co, stats, stream);
 }
 
+// f32 only (bf16 is trans_tc.cu's): x (D, H, W, ci), w (8, ci, co)
+// parity-major, y (2D, 2H, 2W, co)
 int unet_trans2x(const void* x, const void* pa, const void* pb, int act, int ci, const void* w,
-                 const void* bias, void* y, int D, int H, int W, int co, int dtype,
-                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+                 const void* bias, void* y, int D, int H, int W, int co, void* stream) {
   const long n_out = 8L * D * H * W;
   const dim3 grid((unsigned)((n_out + THREADS - 1) / THREADS), co / CO_T);
-  if (dtype == DT_F32)
-    trans2x_kernel<float><<<grid, THREADS, 0, s>>>((const float*)x, (const float*)pa,
-                                                   (const float*)pb, act, ci, (const float*)w,
-                                                   (const float*)bias, (float*)y, D, H, W, co);
-  else
-    trans2x_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)pa, (const float*)pb, act, ci,
-        (const __nv_bfloat16*)w, (const float*)bias, (__nv_bfloat16*)y, D, H, W, co);
+  trans2x_kernel<float><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)pa, (const float*)pb, act, ci, (const float*)w,
+      (const float*)bias, (float*)y, D, H, W, co);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,8 @@
 //       of the 3^3 stride-2 conv, here in f32 only: bf16 K6 runs on the
 //       tensor cores (conv_tc.cu dw_s2_tc_kernel);
 //    K9 replaces unet_studio_tpu/ops/packed.py:782 _trans_dw_kernel, the
-//       dW of the ks2/stride-2 transposed conv.
+//       dW of the ks2/stride-2 transposed conv, here in f32 only: bf16 K9
+//       runs on the tensor cores (trans_tc.cu dw_trans_tc_kernel).
 //    For each tap it computes
 //        out[tap][a][b] = sum_o A[STRIDE*o + tap - PAD][a] * B[o][b]
 //    over the voxels o of B, taps that fall outside A read as zero.  K5
@@ -52,9 +53,7 @@
 // GFLOP (K6, K7) or 8.5 GFLOP (K8, K9): bytes bound them too.  These run
 // on the CUDA cores in f32 FMA (no wgmma, no TMA), whose 67 TFLOP/s put
 // K5 at 1.7 ms at best; bf16 K5, K6 and K7 have tensor-core versions
-// (conv_tc.cu), K8 and K9 are later work.
-
-#include <type_traits>
+// (conv_tc.cu), and so has K9 (trans_tc.cu); K8 is later work.
 
 #include "common.cuh"
 
@@ -313,19 +312,19 @@ static void launch_dw(const void* a, int ad, int ah, int aw, int ca, const void*
       (const T*)a, ad, ah, aw, ca, (const T*)b, bd, bh, bw, cb, part);
 }
 
-template <typename T>
+// f32 only: bf16 K5, K6 (conv_tc.cu) and K9 (trans_tc.cu) run on the
+// tensor cores
 static int dispatch_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, int bd,
-                       int bh, int bw, int cb, int ks, int stride, int pad, float* part,
-                       int nblk, cudaStream_t s) {
-  constexpr bool F32 = std::is_same<T, float>::value;  // bf16 K5 and K6 are conv_tc.cu's
-  if (F32 && ks == 3 && stride == 1 && pad == 1 && ca == 1)
+                       int bh, int bw, int cb, int ks, int stride, int pad, float* part, int nblk,
+                       cudaStream_t s) {
+  if (ks == 3 && stride == 1 && pad == 1 && ca == 1)
     launch_dw<float, 3, 1, 1, 1>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
-  else if (F32 && ks == 3 && stride == 1 && pad == 1)
+  else if (ks == 3 && stride == 1 && pad == 1)
     launch_dw<float, 3, 1, 1, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
-  else if (F32 && ks == 3 && stride == 2 && pad == 1)
+  else if (ks == 3 && stride == 2 && pad == 1)
     launch_dw<float, 3, 2, 1, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
   else if (ks == 2 && stride == 2 && pad == 0)
-    launch_dw<T, 2, 2, 0, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
+    launch_dw<float, 2, 2, 0, 16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, part, nblk, s);
   else
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -339,19 +338,13 @@ extern "C" {
 // success).  The Python wrappers (ops/conv.py) have checked dtype,
 // shapes, contiguity, 16-byte alignment and the channel counts: ca is 1
 // (ks 3, stride 1 only) or a multiple of 16, cb, co and ci multiples of 16.
-// dtype bf16 with ks 3 has no instance here (conv_tc.cu's): bf16 takes
-// K9's ks 2 only.
 
-// part: (nblk, ks^3, ca, cb) f32 scratch; out: (ks^3, ca, cb) f32
+// f32 only: part (nblk, ks^3, ca, cb) f32 scratch; out (ks^3, ca, cb) f32
 int unet_conv_dw(const void* a, int ad, int ah, int aw, int ca, const void* b, int bd, int bh,
                  int bw, int cb, int ks, int stride, int pad, void* part, int nblk, void* out,
-                 int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int rc = dtype == DT_F32
-                     ? dispatch_dw<float>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, ks, stride, pad,
-                                          (float*)part, nblk, s)
-                     : dispatch_dw<__nv_bfloat16>(a, ad, ah, aw, ca, b, bd, bh, bw, cb, ks,
-                                                  stride, pad, (float*)part, nblk, s);
+                 void* stream) {
+  const int rc = dispatch_dw(a, ad, ah, aw, ca, b, bd, bh, bw, cb, ks, stride, pad, (float*)part,
+                             nblk, (cudaStream_t)stream);
   if (rc != 0) return rc;
   return unet_dw_reduce(part, nblk, (long)ks * ks * ks * ca * cb, out, stream);
 }

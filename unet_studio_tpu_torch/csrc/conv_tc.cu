@@ -1,7 +1,9 @@
 // bf16 tensor-core kernels of the 3^3 convolutions, channels-last
 // (D, H, W, C), f32 accumulation: the route of every bf16 call of K1 (all
-// four uses), K3, K5, K6 and K7.  f32 calls keep the FMA kernels of
-// conv.cu and conv_bwd.cu (on the tensor cores f32 would mean TF32).
+// four uses), K3, K5, K6 and K7 (those of the ks2 transposed conv, K4 and
+// K9, are trans_tc.cu's).  f32 calls keep the FMA kernels of conv.cu and
+// conv_bwd.cu (on the tensor cores f32 would mean TF32).  The PTX
+// building blocks are tc.cuh's.
 //
 // K1 conv3_tc_kernel<CI, CO, NSRC, TZ> replaces
 //    unet_studio_tpu/ops/pallas_conv.py:355 _fwd_kernel (conv3x3x3_s1, and
@@ -71,90 +73,15 @@
 // (0.099 ms, bytes); K3 64->128 at level 2 20.6 MB for 7.1 GFLOP (0.0072
 // ms at the bf16 tensor-core peak, operations).
 
-#include "common.cuh"
+#include "tc.cuh"
 
-#define TC_THREADS 128  // 4 warps
-#define TC_TX 16        // output x per MMA row block
-#define RING 3          // weight ring depth when the weights do not fit
+#define RING 3  // weight ring depth when the weights do not fit
 #define RESIDENT_BYTES (32 * 1024)
-
-// ---------------------------------------------------------------------------
-// PTX building blocks
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte async copy; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A fragment of one 16 x 16 tile: lane l gives the shared address of row
-// l % 16, 8-column half l / 16
-__device__ __forceinline__ void ldsm_x4(uint32_t* a, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Physical 16-byte chunk of logical chunk c of voxel v in a row-per-voxel
-// tile with NC chunks per voxel: 8 consecutive voxels reading the same
-// logical chunk land in 8 distinct 16-byte bank groups of a 128-byte line.
-template <int NC>
-__device__ __forceinline__ int swz(int v, int c) {
-  if constexpr (NC >= 8)
-    return c ^ (v & 7);
-  else
-    return c ^ ((v / (8 / NC)) & (NC - 1));
-}
-
-// B fragments of one k-step for all CO/8 n-tiles: lane's 16 bytes per
-// pair of n-tiles, packed by ops/tc_layout.py pack_b
-template <int CO>
-__device__ __forceinline__ void load_b(uint32_t (*b)[2], const unsigned char* kstep, int lane) {
-#pragma unroll
-  for (int p = 0; p < CO / 16; ++p) {
-    const uint4 v = *reinterpret_cast<const uint4*>(kstep + (p * 32 + lane) * 16);
-    b[2 * p][0] = v.x;
-    b[2 * p][1] = v.y;
-    b[2 * p + 1][0] = v.z;
-    b[2 * p + 1][1] = v.w;
-  }
-}
-
-// Copy `bytes` (a multiple of 16) from global to shared with cp.async.
-__device__ __forceinline__ void copy_async(unsigned char* dst, const unsigned char* src,
-                                           int bytes) {
-  for (int i = threadIdx.x * 16; i < bytes; i += TC_THREADS * 16) cp_async16(dst + i, src + i, 16);
-}
 
 // ---------------------------------------------------------------------------
 // shared epilogue of the K1 and K3 kernels: bias, stats, bf16 through
 // shared memory
 // ---------------------------------------------------------------------------
-
-#define TC_WARPS (TC_THREADS / 32)
 
 // acc[mt][nt][4] of MT row blocks per warp over the block's NB output
 // channels n0 .. n0 + NB - 1 of CO; row block r = warp * MT + mt is the
@@ -389,20 +316,7 @@ conv3_tc_kernel(const __nv_bfloat16* __restrict__ xa, const float* __restrict__ 
             fa[k] = pro[s][0][c * 8 + k];
             fb[k] = pro[s][1][c * 8 + k];
           }
-          auto apply = [&](unsigned char* q) {
-            uint4* p = reinterpret_cast<uint4*>(q);
-            uint4 u = *p;
-            __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float2 f = __bfloat1622float2(h2[k]);
-              const float r0 = apply_act(__fadd_rn(__fmul_rn(f.x, fa[2 * k]), fb[2 * k]), act);
-              const float r1 =
-                  apply_act(__fadd_rn(__fmul_rn(f.y, fa[2 * k + 1]), fb[2 * k + 1]), act);
-              h2[k] = __floats2bfloat162_rn(r0, r1);
-            }
-            *p = u;
-          };
+          auto apply = [&](unsigned char* q) { prologue_chunk(q, fa, fb, act); };
           constexpr int VSTEP = TC_THREADS / C::NC;  // voxels between a thread's chunks
           if (interior) {
             // the whole halo lies in the volume, and the thread's chunk has
@@ -753,20 +667,7 @@ s2_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ pa,
           fa[k] = pro[0][c * 8 + k];
           fb[k] = pro[1][c * 8 + k];
         }
-        auto apply = [&](unsigned char* q) {
-          uint4* p = reinterpret_cast<uint4*>(q);
-          uint4 u = *p;
-          __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 f = __bfloat1622float2(h2[k]);
-            const float r0 = apply_act(__fadd_rn(__fmul_rn(f.x, fa[2 * k]), fb[2 * k]), act);
-            const float r1 =
-                apply_act(__fadd_rn(__fmul_rn(f.y, fa[2 * k + 1]), fb[2 * k + 1]), act);
-            h2[k] = __floats2bfloat162_rn(r0, r1);
-          }
-          *p = u;
-        };
+        auto apply = [&](unsigned char* q) { prologue_chunk(q, fa, fb, act); };
         constexpr int VSTEP = TC_THREADS / C::NC;
         if (interior) {
           const int v0 = threadIdx.x / C::NC;
@@ -1013,7 +914,7 @@ s2dx_tc_kernel(const __nv_bfloat16* __restrict__ g, const unsigned char* __restr
 // The tile geometry, the job map and the partial shape are those of
 // ops/tc_layout.py (dw_*), which the CPU tests replay against the twin.
 // The stride-2 form (K6, dw_s2_tc_kernel) changes the halo's extent and a
-// tap's voxel offset; a ks2 form (K9) would too.
+// tap's voxel offset; the ks2 form (K9) has no halo and is trans_tc.cu's.
 //
 // What bounds it on the H100 (bf16 in, f32 out): level 0, 16->16, moves
 // 528 MB (0.158 ms) for 114 GFLOP (0.115 ms at the bf16 tensor-core peak),
@@ -1024,12 +925,6 @@ s2dx_tc_kernel(const __nv_bfloat16* __restrict__ g, const unsigned char* __restr
 #define DW_THREADS (DW_WARPS * 32)
 #define DWE_WARPS 8    // the entry's warps
 #define DWE_THREADS (DWE_WARPS * 32)
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* a, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
 
 template <int CI>
 struct DwCfg {
@@ -1045,14 +940,6 @@ struct DwCfg {
   static constexpr int STAGE_BYTES = HALO_BYTES + G_BYTES;
   static constexpr int SMEM = 2 * STAGE_BYTES;
 };
-
-// lane's row of the 8x8 matrix it addresses in ldmatrix.x4.trans: A rows
-// are k = voxels 0-7 then 8-15 (matrices 0, 1 | 2, 3) at chunks +0, +1;
-// B's are voxels 0-7, 8-15 at chunk 0, then at chunk 1
-__device__ __forceinline__ int dw_a_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
-__device__ __forceinline__ int dw_a_chunk(int lane) { return (lane >> 3) & 1; }
-__device__ __forceinline__ int dw_b_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
-__device__ __forceinline__ int dw_b_chunk(int lane) { return lane >> 4; }
 
 // cp.async g's (NCG * 8)-channel slice of a tile of TV voxels (TY rows of
 // 16 per z plane) into gbuf, zero past the volume
@@ -1499,30 +1386,6 @@ dw_s2_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-
-static int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-// Opt in to the kernel's dynamic shared memory and size its grid: one
-// block per tile when its weights stream, else as many blocks as fit on
-// the card at once, each walking tiles.
-template <typename K>
-static unsigned grid_for(K kernel, int smem, long ntiles, bool resident,
-                         int threads = TC_THREADS) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (!resident) return (unsigned)ntiles;
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  const long cap = (long)(per_sm > 0 ? per_sm : 1) * sm_count();
-  return (unsigned)(ntiles < cap ? ntiles : cap);
-}
 
 // Grid (blocks along x) of each forward kernel: the rows of its stats
 // partial buffer.  The wrappers ask for it (unet_conv3_tc_rows) to size

@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("conv.cu", "conv_bwd.cu", "conv_tc.cu", "reduce.cu", "warp.cu")
+SOURCES = ("conv.cu", "conv_bwd.cu", "conv_tc.cu", "trans_tc.cu", "reduce.cu", "warp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 # the warp equals its twin's order of f32 operations only without
 # contraction of a * b + c into one rounding
 SOURCE_FLAGS = {"warp.cu": ("-fmad=false",), "conv_tc.cu": ("-Xptxas", "-v"),
-                "reduce.cu": ("-Xptxas", "-v")}
+                "trans_tc.cu": ("-Xptxas", "-v"), "reduce.cu": ("-Xptxas", "-v")}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {None: 0, "relu": 1, "leaky_relu": 2}
@@ -50,8 +50,8 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _P],
     # D, H, W, stride: rows of unet_conv3's stats partials
     "unet_conv3_rows": [_I, _I, _I, _I],
-    # x, pa, pb, act, ci, w, bias, y, D, H, W, co, dtype, stream
-    "unet_trans2x": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, pa, pb, act, ci, w, bias, y, D, H, W, co, stream (f32)
+    "unet_trans2x": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, mean, n_vox, c, mode, part, ticket, out, dtype, stream
     "unet_channel_moments": [_P, _P, _L, _I, _I, _P, _P, _P, _I, _P],
     # x, n, part, ticket, out, dtype, stream
@@ -59,9 +59,8 @@ _SIGNATURES = {
     # g, x, mean, inv, n_vox, c, part, ticket, out, dtype, stream
     "unet_channel_norm_bwd": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
     # a, AD, AH, AW, ca, b, BD, BH, BW, cb, ks, stride, pad, part, nblk, out,
-    # dtype, stream
-    "unet_conv_dw": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
-                     _I, _P],
+    # stream (f32)
+    "unet_conv_dw": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     # g, co, w, dx, D, H, W, ci, stream (f32)
     "unet_conv3_s2_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # g, co, w, dx, D, H, W, ci, dtype, stream
@@ -84,6 +83,10 @@ _SIGNATURES = {
     "unet_dw_reduce": [_P, _I, _L, _P, _P],
     # g, co, w, dx, OD, OH, OW, ci, stream
     "unet_conv3_s2_dx_tc": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # K4: x, pa, pb, act, ci, w, bias, y, D, H, W, co, stream (bf16)
+    "unet_trans2x_tc": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K9: x, g, D, H, W, ci, co, part, nblk, out, stream (bf16)
+    "unet_trans2x_dw_tc": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     # src, sd, sh, sw, coords, od, oh, ow, peak, out_img, out_lab, mode,
     # window, stream
     "unet_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P],

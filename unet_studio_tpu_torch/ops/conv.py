@@ -25,8 +25,9 @@ kernel does not take.  The route goes by dtype: bf16 K1 (all four uses),
 K3, K5, K6 and K7 run on the tensor cores (``csrc/conv_tc.cu``, operands
 laid out by ``ops/tc_layout.py``) for the channel counts of
 ``KERNEL_CHANNELS``, ``tc_layout.DW_CI``/``DW_CO``, ``TC_S2`` and
-``TC_S2DX``; f32 keeps the FMA kernels (``csrc/conv.cu``,
-``csrc/conv_bwd.cu``), since f32 on the tensor cores would be TF32.
+``TC_S2DX``, and so do K4 and K9 (``csrc/trans_tc.cu``) for ``TC_TRANS``;
+f32 keeps the FMA kernels (``csrc/conv.cu``, ``csrc/conv_bwd.cu``), since
+f32 on the tensor cores would be TF32.
 ``<wrapper>.launches`` counts the kernel launches, and
 ``<wrapper>.tc_launches`` those of them on the tensor-core route.
 
@@ -50,6 +51,7 @@ from . import _cuda, tc_layout
 KERNEL_CHANNELS = (16, 32, 64)
 TC_S2DX = ((16, 32), (32, 64), (64, 128))  # bf16 K7: (dx channels, g channels)
 TC_S2 = tc_layout.S2_PAIRS  # bf16 K3 and K6: (Ci, Co)
+TC_TRANS = tc_layout.TRANS_PAIRS  # bf16 K4 and K9: the transposed conv's (Ci, Co)
 # kinds of csrc/conv_tc.cu unet_conv3_tc_rows
 _KIND_K1, _KIND_DUAL, _KIND_ENTRY, _KIND_K3 = 0, 1, 2, 3
 
@@ -329,7 +331,8 @@ def conv3x3x3_s2(x, w, b, *, prologue=None, want_stats=False):
 
 def conv_trans2x(x, w, b, *, prologue=None):
     """K4: ConvTranspose3d(ks2, stride2) 2C->C + bias.  Replaces
-    unet_studio_tpu/ops/packed.py ``_trans_kernel`` (``conv_trans2x_up``)."""
+    unet_studio_tpu/ops/packed.py ``_trans_kernel`` (``conv_trans2x_up``).
+    bf16 runs on the tensor cores for (Ci, Co) in ``TC_TRANS``."""
     if x.device.type == "cpu":
         return conv_trans2x_plain(x, w, b, prologue)
     d, h, wd, ci = x.shape
@@ -339,19 +342,28 @@ def conv_trans2x(x, w, b, *, prologue=None):
         raise ValueError(f"conv_trans2x: weight {tuple(w.shape)} for Ci={ci} "
                          "(Ci and Co must be multiples of 16)")
     dt = x.dtype
-    # (Ci, Co, kz, ky, kx) -> (kz, ky, kx, Ci, Co): parity-major
-    wk = w.detach().to(dtype=dt).permute(2, 3, 4, 0, 1).contiguous()
+    tc = dt == torch.bfloat16
+    if tc and (ci, co) not in TC_TRANS:
+        raise ValueError(f"conv_trans2x: bf16 has no tensor-core kernel for Ci={ci}, Co={co} "
+                         f"(takes {TC_TRANS})")
+    wdt = w.detach().to(dtype=dt)
     bias = b.detach().to(dtype=torch.float32).contiguous()
     y = torch.empty((2 * d, 2 * h, 2 * wd, co), dtype=dt, device=x.device)
     pa, pb, act = _prologue_args(prologue, ci, x.device)
     p = _cuda.ptr
     with torch.cuda.device(x.device):
-        rc = _cuda.lib().unet_trans2x(
-            p(x), p(pa), p(pb), act, ci, p(wk), p(bias), p(y), d, h, wd, co,
-            _cuda.DTYPE_CODES[dt], _cuda.stream_ptr(x),
-        )
+        lib, stream = _cuda.lib(), _cuda.stream_ptr(x)
+        if tc:
+            wk = tc_layout.pack_weights(wdt, "k4")
+            rc = lib.unet_trans2x_tc(p(x), p(pa), p(pb), act, ci, p(wk), p(bias), p(y), d, h,
+                                     wd, co, stream)
+        else:
+            # (Ci, Co, kz, ky, kx) -> (kz, ky, kx, Ci, Co): parity-major
+            wk = wdt.permute(2, 3, 4, 0, 1).contiguous()
+            rc = lib.unet_trans2x(p(x), p(pa), p(pb), act, ci, p(wk), p(bias), p(y), d, h, wd,
+                                  co, stream)
     _cuda.check(rc, "conv_trans2x")
-    conv_trans2x.launches += 1
+    _count(conv_trans2x, x)
     return y
 
 
@@ -376,12 +388,12 @@ def conv3x3x3_dx(g, w):
 
 
 def _launch_dw(a, b, ks: int, stride: int, pad: int, name: str):
-    """(ks^3, CA, CB) f32 from the dW kernel (see ``conv_dw_plain``)."""
+    """(ks^3, CA, CB) f32 from the f32 dW kernel (see ``conv_dw_plain``)."""
     ca, cb = a.shape[-1], b.shape[-1]
     _check_act(a, ca, name)
     _check_act(b, cb, name)
-    if a.dtype != b.dtype:
-        raise ValueError(f"{name}: the two inputs differ in dtype")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"{name}: the FMA dW kernel takes f32 inputs, got {a.dtype}, {b.dtype}")
     if cb % 16 or (ca % 16 and not (ca == 1 and ks == 3 and stride == 1)):
         raise ValueError(f"{name}: channels ({ca}, {cb}) must be multiples of 16 "
                          "(or 1 for the stride-1 conv's input)")
@@ -399,7 +411,7 @@ def _launch_dw(a, b, ks: int, stride: int, pad: int, name: str):
     with torch.cuda.device(a.device):
         rc = _cuda.lib().unet_conv_dw(
             p(a), *a.shape[:3], ca, p(b), *b.shape[:3], cb, ks, stride, pad, p(part), nblk,
-            p(out), _cuda.DTYPE_CODES[a.dtype], _cuda.stream_ptr(a),
+            p(out), _cuda.stream_ptr(a),
         )
     _cuda.check(rc, name)
     return out
@@ -468,18 +480,50 @@ def conv3x3x3_s2_dw(x, g):
     return out.reshape(3, 3, 3, x.shape[-1], g.shape[-1]).permute(4, 3, 0, 1, 2).contiguous()
 
 
+def _launch_trans_dw_tc(x, g):
+    """(8, Ci, Co) f32, tap (rz, ry, rx), from the tensor-core K9 kernel."""
+    name = "conv_trans2x_dw"
+    ci, co = x.shape[-1], g.shape[-1]
+    _check_act(x, ci, name)
+    _check_act(g, co, name)
+    if g.dtype != torch.bfloat16 or tuple(g.shape[:3]) != tuple(2 * n for n in x.shape[:3]):
+        raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} and g {tuple(g.shape)} "
+                         f"{g.dtype} must be bf16 volumes, g twice x's size")
+    if (ci, co) not in TC_TRANS:
+        raise ValueError(f"{name}: bf16 has no tensor-core kernel for Ci={ci}, Co={co} "
+                         f"(takes {TC_TRANS})")
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nblk = tc_layout.trans_dw_blocks(x.shape[:3], ci, co, n_sm)
+    part = torch.empty(tc_layout.trans_dw_partial_shape(nblk, ci, co), dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((8, ci, co), dtype=torch.float32, device=x.device)
+    p = _cuda.ptr
+    with torch.cuda.device(x.device):
+        rc = _cuda.lib().unet_trans2x_dw_tc(p(x), p(g), *x.shape[:3], ci, co, p(part), nblk,
+                                             p(out), _cuda.stream_ptr(x))
+    _cuda.check(rc, name)
+    return out
+
+
 def conv_trans2x_dw(x, g):
     """K9: the f32 (Ci, Co, 2, 2, 2) weight gradient of the ks2/stride-2
     transposed conv with input ``x`` (D, H, W, Ci) and output gradient
-    ``g`` (2D, 2H, 2W, Co): the dW kernel with the roles of x and g
-    swapped.  Replaces unet_studio_tpu/ops/packed.py ``_trans_dw_kernel``
-    (in ``conv_trans2x_p``'s VJP)."""
+    ``g`` (2D, 2H, 2W, Co).  Replaces unet_studio_tpu/ops/packed.py
+    ``_trans_dw_kernel`` (in ``conv_trans2x_p``'s VJP).  bf16 runs on the
+    tensor cores for (Ci, Co) in ``TC_TRANS``, giving (tap, Ci, Co); f32
+    and the twin run the dW kernel with the roles of x and g swapped,
+    giving (tap, Co, Ci)."""
+    ci, co = x.shape[-1], g.shape[-1]
     if x.device.type == "cpu":
         out = conv_dw_plain(g, x, 2, 2, 0)
+    elif x.dtype == torch.bfloat16:
+        out = _launch_trans_dw_tc(x, g)
+        _count(conv_trans2x_dw, x)
+        return out.reshape(2, 2, 2, ci, co).permute(3, 4, 0, 1, 2).contiguous()
     else:
         out = _launch_dw(g, x, 2, 2, 0, "conv_trans2x_dw")
-        conv_trans2x_dw.launches += 1
-    return out.reshape(2, 2, 2, g.shape[-1], x.shape[-1]).permute(4, 3, 0, 1, 2).contiguous()
+        _count(conv_trans2x_dw, x)
+    return out.reshape(2, 2, 2, co, ci).permute(4, 3, 0, 1, 2).contiguous()
 
 
 def conv3x3x3_s2_dx(g, w):
@@ -548,8 +592,8 @@ def conv_trans2x_dx(g, w):
 WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x,
             conv3x3x3_dx, conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx, conv_trans2x_dx,
             conv_trans2x_dw)
-TC_WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv3x3x3_dx,
-               conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx)
+TC_WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x,
+               conv3x3x3_dx, conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx, conv_trans2x_dw)
 for _fn in WRAPPERS:
     _fn.launches = 0
     _fn.tc_launches = 0

@@ -14,6 +14,8 @@ weights' device, before each launch:
   channels one after the other along K (a block of K3 takes one half);
 - ``s2dx_weight_matrix``: K7's B, K in (tap, g channel) order over the
   taps of ``s2dx_taps``, the 8 parity classes one after another;
+- ``k4_weight_matrix``: K4's B, K = Ci, N in (rz, ry, rx, co) order, so
+  that one output parity slice (rz, ry) is 2 Co consecutive columns;
 - ``pack_b``: B in mma fragment order, the layout the kernels read;
 - ``pack_weights``: one of those matrices packed, as one gather through
   an index built once per layout and weight shape (the wrappers' path:
@@ -34,6 +36,10 @@ in it, the 16-byte chunk swizzle, the rows each lane hands ldmatrix,
 which warp owns which (tap, m-tile) job, the grid and the partial buffer.
 The wrappers size the launches with them; the CPU tests replay the
 kernels' GEMMs through them against ``conv_dw_plain``.
+
+K4 and K9 (``trans2x_tc_kernel``, ``dw_trans_tc_kernel``, ks2/stride 2,
+no halo): the runs of 16 input x each warp or block takes (``k4_*``,
+``trans_dw_*``) and the output span of one parity slice (``trans_span``).
 """
 
 from __future__ import annotations
@@ -121,12 +127,20 @@ def s2dx_weight_matrix(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([w[:, :, kz, ky, kx] for _, _, (kz, ky, kx) in s2dx_taps()])
 
 
+def k4_weight_matrix(w: torch.Tensor) -> torch.Tensor:
+    """The transposed conv's (Ci, Co, 2, 2, 2) -> (Ci, 8*Co), N = ((rz * 2
+    + ry) * 2 + rx) * Co + co: output parity (rz, ry, rx), channel co."""
+    ci, co = w.shape[:2]
+    return w.permute(0, 2, 3, 4, 1).reshape(ci, 8 * co)
+
+
 LAYOUTS = {
     "k1": k1_weight_matrix,
     "k1_dual": functools.partial(k1_weight_matrix, nsrc=2),
     "entry": entry_weight_matrix,
     "s2dx": s2dx_weight_matrix,
     "k3": k3_weight_matrix,
+    "k4": k4_weight_matrix,
 }
 
 
@@ -342,3 +356,79 @@ def dw_blocks(dims, ci: int, co: int, n_sm: int, stride: int = 1) -> int:
 def dw_partial_shape(nblk: int, ci: int, co: int) -> tuple[int, int, int, int]:
     """The per-block partial sums, added over blocks in order into dW."""
     return nblk, 27, ci, co
+
+
+# ---------------------------------------------------------------------------
+# K4 and K9 on the tensor cores: trans2x_tc_kernel's and dw_trans_tc_kernel's
+# geometry (ks2/stride 2: output voxel 2v + (rz, ry, rx) reads input voxel
+# v alone, so no halo)
+# ---------------------------------------------------------------------------
+
+# (Ci, Co) of the transposed convs with a tensor-core instance (K4 and K9):
+# the flagship's 32 -> 16 and 64 -> 32; wider ones run cuDNN, as JAX sends
+# them to XLA
+TRANS_PAIRS = ((32, 16), (64, 32))
+
+
+def k4_tiles(dims) -> list[tuple[int, int, int]]:
+    """(z, y, x0) of every m-tile of x's ``dims``: a run of 16 input x of
+    one row, x fastest.  Warp w of block b takes m-tiles b * TC_WARPS + w,
+    then every grid * TC_WARPS further on."""
+    d, h, w = dims
+    return [(z, y, x) for z in range(d) for y in range(h) for x in range(0, w, DW_TX)]
+
+
+def trans_span(z: int, y: int, x0: int, s: int, dims, co: int) -> int:
+    """Element offset, in the (2D, 2H, 2W, Co) output (K4's y, K9's g), of
+    parity slice s = (rz, ry) = (s >> 1, s & 1) of the run of 16 input x
+    from (z, y, x0): output row (2z + rz, 2y + ry) from x = 2 x0.  The run's
+    input voxel m owns the 2 Co elements (rx, co) from m * 2 Co on, so the
+    slice of a 16-voxel GEMM row block is one contiguous span."""
+    d, h, w = dims
+    return (((2 * z + (s >> 1)) * 2 * h + 2 * y + (s & 1)) * 2 * w + 2 * x0) * co
+
+
+TRANS_DW_WARPS = 8  # K9: warp w owns slice w // 2 and half w % 2 of the m-tiles
+TRANS_DW_BLOCKS_PER_SM = 2  # what the double-buffered stages' 80 KB allow
+
+
+def trans_dw_krows(ci: int) -> int:
+    """k-rows (runs of 16 input x) per K9 tile: 40 KB of x and g per stage."""
+    return 8 if ci == 32 else 4
+
+
+def trans_dw_krow(kr: int, dims) -> tuple[int, int, int]:
+    """(z, y, x0) of k-row ``kr`` of x's ``dims`` (``k4_tiles``' order)."""
+    d, h, w = dims
+    ntx = -(-w // DW_TX)
+    return kr // ntx // h, kr // ntx % h, kr % ntx * DW_TX
+
+
+def trans_dw_ntiles(dims, ci: int) -> int:
+    d, h, w = dims
+    return -(-(d * h * -(-w // DW_TX)) // trans_dw_krows(ci))
+
+
+def trans_dw_warp_mtiles(ci: int, warp: int) -> list[int]:
+    """The m-tiles (16 input channels each) of slice ``warp // 2`` that
+    ``warp`` owns; it owns every n-tile of the slice (2 Co columns)."""
+    per = ci // 32
+    return list(range((warp % 2) * per, (warp % 2 + 1) * per))
+
+
+def trans_dw_blocks(dims, ci: int, co: int, n_sm: int) -> int:
+    """Blocks of K9 (its grid) for x's ``dims``: one wave over the card, no
+    more than there are tiles, and few enough that the f32 partials
+    (``trans_dw_partial_shape``) stay within an eighth of the bytes of the
+    bf16 inputs x and g (at level 1, 64 -> 32: 64 KB per block against 83
+    MB of inputs)."""
+    in_bytes = 2 * (ci + 8 * co) * math.prod(dims)
+    nblk = min(trans_dw_ntiles(dims, ci), TRANS_DW_BLOCKS_PER_SM * n_sm,
+               in_bytes // 8 // (8 * ci * co * 4))
+    return max(1, nblk)
+
+
+def trans_dw_partial_shape(nblk: int, ci: int, co: int) -> tuple[int, int, int, int]:
+    """The per-block partial sums, (blocks, tap (rz, ry, rx), Ci, Co),
+    added over blocks in order into dW."""
+    return nblk, 8, ci, co
