@@ -27,10 +27,11 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    share of ``infer``.
 5. Each backward kernel (K1 as dx, K5-K9, K2 ``norm_bwd``) against its
    twin at the flagship shapes, in bf16 and in f32, with its times and
-   bound as in phase 2 (K1 dx, K5, K6, K7 and K9 in bf16 on the tensor
-   cores; K5, K6 and K9 also per level (and K5 at the entry),
-   ``tc_ms_c*``, ``tc_ms_entry``, beside ``bound_ms_*`` and their f32 FMA
-   route, ``f32_fma_ms``, and bitwise over two launches).
+   bound as in phase 2 (K1 dx, K5, K6, K7, K8 and K9 in bf16 on the
+   tensor cores; K5, K6, K8 and K9 also per level (and K5 at the entry),
+   ``tc_ms_c*``, ``tc_ms_entry``, beside ``bound_ms_*``, their own device
+   time ``device_ms_*`` and their f32 FMA route, ``f32_fma_ms``, and
+   bitwise over two launches).
 6. The train step (``build_train_step``) at full width on two items it
    synthesizes from synthetic phantoms (contrast simulation and the
    default augmentation, with rubber stamps): every gradient of an f32
@@ -40,16 +41,20 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    sum in a fixed order, and cuDNN, which serves the C >= 128 levels, is
    asked for its deterministic algorithms there); the bf16
    step against the f32 one; three bf16 steps with the loss falling;
-   each kernel's launches in one step (counts set to 0 just before it;
-   every bf16 K1, K3, K4, K5, K6, K7 and K9 launch on the tensor cores,
-   ``tc_launches``), the step's synthesis / forward / backward /
-   optimizer split, its device busy share and top kernels, and its peak
-   memory.
+   the host syncs of one item's synthesis by source line (the warp
+   wrappers make none: the step's labels are uint8, as TrainEngine hands
+   them over); each kernel's launches in one step (counts set to 0 just
+   before it; every bf16 K1, K3, K4, K5, K6, K7, K8 and K9 launch on the
+   tensor cores, ``tc_launches``), the step's synthesis / forward /
+   backward / optimizer split, its device busy share and top kernels, and
+   its peak memory.
 7. The augmentation's kernels against their twins at the flagship grid:
-   the warp (K10-K12) in its packed image + label and linear modes, with
-   and without the supercell window, over one default-options coordinate
-   field, the linear warp at the stamp grid 48x56x48, K2's max, sum and
-   sqdiff; one augmentation and one contrast simulation per item, timed.
+   the warp (K10-K12) in its image + label (uint8 and float labels) and
+   linear modes, with and without the supercell window, over one
+   default-options coordinate field, the linear warp at the stamp grid
+   48x56x48, each with its own device time (``device_ms``) and the stamp
+   grid's bound; K2's max, sum and sqdiff; one augmentation and one
+   contrast simulation per item, timed.
    Every K2 row (phases 2, 5, 7) also gives ``device_ms``, the kernel's own
    time from ``torch.profiler``, and ``host_ms``, the wrapper's host time
    per call, beside the event-timed ``ms``, and checks that two calls
@@ -60,7 +65,7 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
 8. The CLI on the card: ``--action train`` on a synthetic BIDS directory
    with one 182x218x182 1 mm template (3 epochs of 2 items, the default
    augmentation, launches counted around it, every bf16 K1, K3, K4, K5,
-   K6, K7 and K9 launch on the tensor cores), its resume at epoch 3,
+   K6, K7, K8 and K9 launch on the tensor cores), its resume at epoch 3,
    ``--action evaluate`` with the final model; then the convergence
    check of tests/test_convergence.py (validation dice error down by more
    than 40 %, template dice above 0.8).
@@ -196,6 +201,34 @@ def host_ms(fn, reps: int = 20) -> float:
     dt = time.perf_counter() - t
     torch.cuda.synchronize()
     return dt / reps * 1e3
+
+
+def host_syncs(fn) -> dict:
+    """The operations of one call of ``fn`` that make the host wait for the
+    card, counted by the source line that called them (torch's sync debug
+    mode warns at each: an item, a copy to the host, a copy from pageable
+    host memory, a data-dependent shape)."""
+    import warnings
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = os.path.relpath(w.filename, root) if w.filename.startswith(root) else w.filename
+            key = f"{path}:{w.lineno}"
+            out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def repeatable(fn) -> bool:
@@ -461,27 +494,40 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
            "unet_studio_tpu/ops/packed.py:1008", K.conv3x3x3_s2_dx, errs, *timing,
            BF16_TENSOR_FLOPS, fma)
 
-    # K8: the transposed conv's dx, g at level l (C) -> dx at level l+1 (2C)
+    # K8: the transposed conv's dx, g at level l (Co) -> dx at level l+1 (Ci =
+    # 2 Co), 32 <- 16 and 64 <- 32; bf16 on the tensor cores, each pair timed
+    # beside its bound and its own device time and checked bitwise over two
+    # calls, f32 on the FMA kernel (``f32_fma_ms_c*``)
     errs = {}
     for dims, co in ((S0, 16), (S1, 32)):
-        half = tuple(s // 2 for s in dims)
+        half, ci = tuple(s // 2 for s in dims), 2 * co
+        nbytes, ops = 2 * co * nvox(dims) + 2 * ci * nvox(half), 2 * 8 * ci * co * nvox(half)
         for dtype, tol, tag in dtypes:
-            g, w = rnd((*dims, co), dtype), rnd((2 * co, co, 2, 2, 2), scale=(8 * co) ** -0.5)
+            g, w = rnd((*dims, co), dtype), rnd((ci, co, 2, 2, 2), scale=(8 * co) ** -0.5)
             dx, ref = K.conv_trans2x_dx(g, w), K.conv_trans2x_dx_plain(g, w)
             e = rel_err(dx, ref)
-            require(e < tol and dx.shape == (*half, 2 * co), f"conv_trans2x_dx Co={co} {tag}: {e}")
+            require(e < tol and dx.shape == (*half, ci), f"conv_trans2x_dx Co={co} {tag}: {e}")
             errs[f"{tag}_rel_co{co}"] = e
+            if dtype == torch.bfloat16:
+                require(repeatable(lambda: K.conv_trans2x_dx(g, w)),
+                        f"conv_trans2x_dx Co={co} bf16: dx differs over two calls")
+                errs[f"tc_ms_c{ci}"] = timed_ms(lambda: K.conv_trans2x_dx(g, w))
+                errs[f"device_ms_c{ci}"] = device_ms(lambda: K.conv_trans2x_dx(g, w),
+                                                     "trans2x_dx_tc_kernel")
+                errs[f"bound_ms_c{ci}"] = max(nbytes / HBM_BYTES_PER_S,
+                                              ops / BF16_TENSOR_FLOPS) * 1e3
+            else:
+                errs[f"f32_fma_ms_c{ci}"] = timed_ms(lambda: K.conv_trans2x_dx(g, w))
             if co == 16 and dtype == torch.bfloat16:
                 errs["bf16_abs"] = abs_err(dx, ref)
-                ms = timed_ms(lambda: K.conv_trans2x_dx(g, w))
                 plain_ms = timed_ms(lambda: K.conv_trans2x_dx_plain(g, w))
                 gl, wl = K.ncdhw(g), w.to(dtype)
                 lib_ms = timed_ms(lambda: F.conv3d(gl, wl, stride=2))
-                timing = (ms, plain_ms, lib_ms, 2 * co * nvox(dims) + 2 * 2 * co * nvox(half),
-                          2 * 8 * 2 * co * co * nvox(half))
+                timing = (errs["tc_ms_c32"], plain_ms, lib_ms, nbytes, ops)
             del g, dx, ref
-    record("conv_trans2x_dx", bwd_src, "unet_studio_tpu/ops/packed.py:768",
-           K.conv_trans2x_dx, errs, *timing, BF16_TENSOR_FLOPS)
+    record("conv_trans2x_dx", "unet_studio_tpu_torch/csrc/trans_tc.cu",
+           "unet_studio_tpu/ops/packed.py:768", K.conv_trans2x_dx, errs, *timing,
+           BF16_TENSOR_FLOPS, {"f32_fma_ms": errs["f32_fma_ms_c32"]})
 
     # K2 norm_bwd: inputs of nonzero mean with g correlated with x, so
     # neither sum cancels and the gate measures the kernel's sums
@@ -542,7 +588,7 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     import torch
 
     from unet_studio_tpu_torch.engine.optimizer import init_opt_state
-    from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step
+    from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step, item_rng
     from unet_studio_tpu_torch.models import unet3d as U
     from unet_studio_tpu_torch.ops import conv as K
     from unet_studio_tpu_torch.ops.augment import AugOptions
@@ -550,7 +596,8 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     model = U.UNet3d.create(1, 3, arch, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     images, labels = phantom_batch(dhw or model.dim_dhw, 2, gen, dev)
-    images = images.clamp_min(0.0)
+    # integer labels as uint8, as TrainEngine hands a batch to the step
+    images, labels = images.clamp_min(0.0), labels.to(torch.uint8)
     opt = AugOptions()
     seeds = stamp_seeds(opt, 7, 2)
     step32, _ = build_train_step(model, TrainParam(batch_size=2, compute_dtype="float32",
@@ -597,6 +644,16 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
             f"the f32 step's parity reading changed between two runs: {l2_a!r}, {l2_again!r}")
     torch.cuda.empty_cache()
 
+    # the host syncs of one item's synthesis, by source line: the warp
+    # wrapper must make none (its uint8 label needs no range check)
+    syncs = host_syncs(lambda: step16.synthesize(images[0], labels[0], True,
+                                                 item_rng(*seeds[0])))
+    warp_syncs = sum(v for k, v in syncs.items() if k.startswith("unet_studio_tpu_torch/ops/warp"))
+    print(json.dumps({"synthesize_host_syncs": {"count": sum(syncs.values()),
+                                                "warp_wrappers": warp_syncs,
+                                                "by_line": syncs}}), flush=True)
+    require(warp_syncs == 0, f"the warp wrappers made {warp_syncs} host syncs in one item")
+
     # (c, d) three bf16 steps at lr 1e-2 on the same items; the first is
     # the counted run
     opt_state = init_opt_state(model.params())
@@ -624,7 +681,8 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     log("tensor-core launches in the bf16 step: " + json.dumps(tc))
     require(all(v > 0 for v in tc.values())
             and all(tc[k] == records[k][0]["launches"] for k in tc),
-            "a bf16 K1, K3, K4, K5, K6, K7 or K9 launch of the train step missed the tensor cores")
+            "a bf16 K1, K3, K4, K5, K6, K7, K8 or K9 launch of the train step missed the "
+            "tensor cores")
     losses = [float(loss1)]
     step_profile = {}
 
@@ -636,8 +694,8 @@ def phase6_train_step(records, arch: str, dev, card: str, dhw=None) -> None:
     step_profile = profile_forward(second, top=30, grad=True, watch=(
         "s2_tc_kernel", "dw_s2_tc_kernel", "conv3_tc_kernel", "entry_tc_kernel", "dw_tc_kernel",
         "dw_entry_tc_kernel", "s2dx_tc_kernel", "trans2x_tc_kernel", "dw_trans_tc_kernel",
-        "dw_reduce_kernel", "channel_reduce_kernel", "trans2x_dx_kernel", "warp_kernel",
-        "max_kernel"))
+        "dw_reduce_kernel", "channel_reduce_kernel", "trans2x_dx_tc_kernel", "warp_kernel",
+        "warp_pack_kernel", "max_kernel"))
     torch.cuda.synchronize()
     t = time.perf_counter()
     opt_state, _, loss3 = step16(opt_state, images, labels, None, 1e-2, seeds=seeds)
@@ -680,6 +738,7 @@ def phase7_augmentation_kernels(record, rnd, dev, card: str, shape=(192, 224, 19
     gen = torch.Generator(device=dev).manual_seed(11)
     images, labels = phantom_batch(shape, 1, gen, dev)
     img, lab = images[0, ..., 0].clamp_min(0.0).contiguous(), labels[0].float().contiguous()
+    lab8 = labels[0].to(torch.uint8)  # the train path's label type (TrainEngine, synthesize)
     opt = A.AugOptions()
     draws = A.draw_augmentation(opt, shape, np.random.default_rng(3), device=dev)
     coords = A.warp_coords(draws, opt, shape, dev)
@@ -694,32 +753,40 @@ def phase7_augmentation_kernels(record, rnd, dev, card: str, shape=(192, 224, 19
         return lambda: F.grid_sample(v, grid, mode="bilinear", padding_mode="zeros",
                                      align_corners=True)
 
-    # the fused image + label warp: labels exactly, the image to 1e-6 of its peak
+    # the fused image + label warp on the uint8 label: labels exactly, the
+    # image to 1e-6 of its peak; the float label gives the same bits.  Timed
+    # as the train path calls it (K2 max for the peak included); bytes: 12 of
+    # coordinates, 4 of image, 1 of label and 8 of output per voxel
     errs, timing = {}, None
     for window in (True, False):
-        ki, kl = W.warp_image_label(img, lab, coords, window)
+        ki, kl = W.warp_image_label(img, lab8, coords, window)
         ti, tl = W.warp_image_label_plain(img, lab, coords, window)
+        fi, fl = W.warp_image_label(img, lab, coords, window)
         e = float((ki - ti).abs().max()) / float(ti.abs().max())
         tag = "window" if window else "cells"
         require(torch.equal(kl, tl) and e <= 1e-6, f"warp_image_label {tag}: labels equal "
                 f"{torch.equal(kl, tl)}, image err {e}")
+        require(torch.equal(fi, ki) and torch.equal(fl, kl),
+                f"warp_image_label {tag}: the float label warps otherwise than the uint8 one")
         errs[f"{tag}_rel"] = e
         errs[f"{tag}_label_mismatch"] = int((kl != tl).sum())
         if window:
             errs["max_abs"] = float((ki - ti).abs().max())
-
-            def kernel_path():
-                packed, peak = RS._pack_image_label(img, lab)
-                return W._launch(packed, coords, peak, W._MODE_PACKED, True, "warp")
-
-            timing = (timed_ms(kernel_path), timed_ms(lambda: W.warp_image_label_plain(
-                img, lab, coords, True)), None, 28 * n, 200 * n)
-        del ki, kl, ti, tl
+            # the gathers alone, the packing pass alone, and every kernel
+            # of the call (K2 max for the peak included)
+            for key, kern in (("device_ms", "warp_kernel"),
+                              ("device_ms_pack", "warp_pack_kernel"), ("device_ms_all", "")):
+                errs[key] = device_ms(lambda: W.warp_image_label(img, lab8, coords, True), kern)
+            timing = (timed_ms(lambda: W.warp_image_label(img, lab8, coords, True)),
+                      timed_ms(lambda: W.warp_image_label_plain(img, lab, coords, True)), None,
+                      25 * n, 200 * n)
+        del ki, kl, ti, tl, fi, fl
     record("warp_image_label", warp_src, "unet_studio_tpu/ops/pallas_warp.py:415",
            W.warp_image_label, errs, *timing, F32_FLOPS)
 
     # the linear warp at the flagship grid (both semantics) and at the
-    # stamp grid (48, 56, 48), with the window as the stamps take it
+    # stamp grid (48, 56, 48), with the window as the stamps take it; bytes:
+    # 12 of coordinates, 4 of source and 4 of output per voxel
     errs, timing = {}, None
     low = tuple(s // 4 for s in shape)
     vol_low = img.reshape(low[0], 4, low[1], 4, low[2], 4).mean(dim=(1, 3, 5)).contiguous()
@@ -734,11 +801,17 @@ def phase7_augmentation_kernels(record, rnd, dev, card: str, shape=(192, 224, 19
         errs[f"{tag}_rel"] = e
         if tag == "window":
             errs["max_abs"] = float((kv - tv).abs().max())
+            errs["device_ms"] = device_ms(lambda: W.warp_linear(img, coords, True), "warp_kernel")
             timing = (timed_ms(lambda: W.warp_linear(img, coords, True)),
                       timed_ms(lambda: W.warp_linear_plain(img, coords, True)),
                       timed_ms(lib_grid_sample(img, coords)), 20 * n, 45 * n)
         if tag == "stamp_grid":
+            n_low = low[0] * low[1] * low[2]
             errs["stamp_grid_ms"] = timed_ms(lambda: W.warp_linear(vol_low, low_coords, True))
+            errs["stamp_grid_device_ms"] = device_ms(
+                lambda: W.warp_linear(vol_low, low_coords, True), "warp_kernel")
+            errs["stamp_grid_bound_ms"] = max(20 * n_low / HBM_BYTES_PER_S,
+                                              45 * n_low / F32_FLOPS) * 1e3
         del kv, tv
     record("warp_linear", warp_src, "unet_studio_tpu/ops/pallas_warp.py:415 (the linear "
            "tail of resample.py:576)", W.warp_linear, errs, *timing, F32_FLOPS)
@@ -832,12 +905,12 @@ def phase7_augmentation_kernels(record, rnd, dev, card: str, shape=(192, 224, 19
 
     sim = SIM.draw_simulation(np.random.default_rng(4), 3)
     item = {"aug_ms": wall_ms(lambda: A.visual_perception_augmentation(
-                img[..., None], lab, draws, opt)),
+                img[..., None], lab8, draws, opt)),
             "sim_ms": wall_ms(lambda: SIM.simulate_modality_template(img, lab, 3, sim)),
             "card": card}
     print(json.dumps({"synthesis_per_item": item}), flush=True)
     print(json.dumps({"augmentation_profile": profile_forward(
-        lambda: A.visual_perception_augmentation(img[..., None], lab, draws, opt))}), flush=True)
+        lambda: A.visual_perception_augmentation(img[..., None], lab8, draws, opt))}), flush=True)
     del images, labels, coords
     torch.cuda.empty_cache()
 
@@ -908,8 +981,8 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
         if w in K.TC_WRAPPERS:
             rec["tc_launches_cli_train"] = w.tc_launches
     require(all(w.tc_launches == w.launches for _, w in records.values() if w in K.TC_WRAPPERS),
-            "a bf16 K1, K3, K4, K5, K6, K7 or K9 launch of the CLI train run missed the tensor "
-            "cores")
+            "a bf16 K1, K3, K4, K5, K6, K7, K8 or K9 launch of the CLI train run missed the "
+            "tensor cores")
     rc, out, resume_s = run_cli(["--action", "train", "--model", model + ".final.nz",
                                  "--bids", bids, "--batch_size", "2", "--epoch", "4",
                                  "--device", dev])
@@ -1010,7 +1083,8 @@ def main() -> int:
     print(json.dumps({"ptxas": report}), flush=True)
     for k in report:
         if any(n in k["kernel"] for n in ("s2_tc_kernel", "trans2x_tc_kernel",
-                                          "dw_trans_tc_kernel")):  # K3, K6, K4, K9
+                                          "trans2x_dx_tc_kernel", "dw_trans_tc_kernel",
+                                          "warp_kernel")):  # K3, K6, K4, K8, K9, K10-K12
             log(f"ptxas {k['kernel']}: {'; '.join(k['info'])}")
 
     # ---- 2. kernels vs twins at the flagship shapes -------------------------

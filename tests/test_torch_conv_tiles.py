@@ -3,8 +3,10 @@
 wrappers build before a launch, read back as ``mma.m16n8k16`` reads it,
 through a plain im2col GEMM in the kernels' K order, against the convs'
 twins; and K3's tile map (its parity-split halo, lane-level ldmatrix,
-stats fold) and K4's (a warp's k-rows, its parity slices, the swizzled
-staging of its output spans) replayed as the kernels run them.  The
+stats fold), K4's (a warp's k-rows, its parity slices, the swizzled
+staging of its output spans) and K8's (a warp's k-rows of dx, the four g
+spans of each as its A, the swizzled staging of its dx span) replayed as
+the kernels run them.  The
 kernels themselves run in tests/test_torch_cuda_kernels.py.
 """
 
@@ -152,7 +154,9 @@ def test_s2dx_class_gemms_equal_the_twin(ci, co, half):
                                           ("k3", (32, 16, 3, 3, 3)),
                                           ("k3", (128, 64, 3, 3, 3)),
                                           ("k4", (32, 16, 2, 2, 2)),
-                                          ("k4", (64, 32, 2, 2, 2))])
+                                          ("k4", (64, 32, 2, 2, 2)),
+                                          ("k8", (32, 16, 2, 2, 2)),
+                                          ("k8", (64, 32, 2, 2, 2))])
 def test_pack_weights_is_one_gather_of_pack_b(layout, shape):
     """The wrappers' cached-index gather equals building B and packing it,
     bit for bit, on a strided view too (dx packs flip_transpose(w))."""
@@ -409,3 +413,90 @@ def test_k4_tiles_and_spans():
             for m in range(min(16, 40 - x0)):
                 start = L.trans_span(z, y, x0, s, dims, co) + m * 2 * co
                 assert int(out[2 * z + rz, 2 * y + ry, 2 * (x0 + m), 0]) == start
+
+
+# ---------------------------------------------------------------------------
+# K8 (trans2x_dx_tc_kernel): K4's GEMM read the other way, K = the 4 g spans
+# ---------------------------------------------------------------------------
+
+
+def replay_k8(g, w, grid: int = 3):
+    """K8's dx as trans2x_dx_tc_kernel computes it: warp w of block blk
+    takes the dx k-rows blk * TC_WARPS + w, then every grid * TC_WARPS (K4's
+    order over dx); a k-row's four g spans (``trans_span``, 16 rows of 2 Co
+    each, zero past the row's end) are staged as 64 swizzled rows, row s *
+    16 + m; the A fragment of k-step ks comes lane by lane through
+    ldmatrix from rows (ks // (Co / 8)) * 16 + m, chunks 2 (ks % (Co / 8))
+    and + 1; B is ``pack_weights(w, "k8")`` in fragment order; the 16 dx
+    voxels go through the swizzled staging rows and are stored as one span
+    of dx, rows past the row's end left out.  Every dx value not written
+    stays NaN."""
+    d2, h2, w2, co = g.shape
+    dims = (d2 // 2, h2 // 2, w2 // 2)
+    d, h, wd = dims
+    ci = w.shape[0]
+    sn, ncg, nco = 2 * co, co // 4, ci // 8
+    bm = fragment_matrix(L.pack_weights(w, "k8"))  # (8 Co, Ci)
+    flat = g.reshape(-1)
+    tiles = L.k4_tiles(dims)
+    dx = torch.full((d * h * wd * ci,), float("nan"))
+    row16 = LANE & 15
+    for blk in range(grid):
+        for warp in range(L.TC_WARPS):
+            for z, yy, x0 in tiles[blk * L.TC_WARPS + warp::grid * L.TC_WARPS]:
+                nv = min(16, wd - x0)
+                spans = []
+                for s in range(4):
+                    start = L.trans_span(z, yy, x0, s, dims, co)
+                    run = flat[start:start + nv * sn].reshape(nv, sn)
+                    spans.append(F.pad(run, (0, 0, 0, 16 - nv)))
+                phys = store_swizzled(torch.cat(spans).reshape(64, ncg, 8))
+                a = torch.cat([ldsm_a(phys, s * 16 + row16, 2 * j + (LANE >> 4))
+                               for s in range(4) for j in range(co // 8)], 1)
+                stg = store_swizzled((a @ bm).reshape(16, nco, 8))
+                base = ((z * h + yy) * wd + x0) * ci
+                for m in range(nv):
+                    chunks = stg[m, L.swizzle(nco, m, torch.arange(nco))]
+                    dx[base + m * ci:base + (m + 1) * ci] = chunks.reshape(-1)
+    return dx.reshape(d, h, wd, ci)
+
+
+@pytest.mark.parametrize("ci,co,dims", [(32, 16, (2, 2, 20)), (64, 32, (1, 3, 20))])
+def test_k8_gemm_through_the_map_equals_the_twin(ci, co, dims):
+    """trans2x_dx_tc_kernel's k-rows (ragged W = 20), its four g spans as
+    one A of K = 8 Co and its dx spans through the tc_layout map write
+    every dx voxel once and equal conv_trans2x_dx_plain."""
+    rng = np.random.default_rng(ci + sum(dims))
+    g = _t(rng, (2 * dims[0], 2 * dims[1], 2 * dims[2], co))
+    w = _t(rng, (ci, co, 2, 2, 2), 0.2)
+    assert L.k8_weight_matrix(w).shape == (8 * co, ci)
+    dx = replay_k8(g, w)
+    ref = K.conv_trans2x_dx_plain(g, w)
+    assert dx.shape == ref.shape == (*dims, ci) and not dx.isnan().any()
+    assert _rel(dx, ref) < TOL
+
+
+@pytest.mark.parametrize("ci,co", L.TRANS_PAIRS)
+def test_k8_shared_memory_phases_hit_distinct_banks(ci, co):
+    """trans2x_dx_tc_kernel's A ldmatrix over its 64 staged span rows and
+    its 16-byte staging reads (8 lanes a phase) hit 8 distinct 16-byte bank
+    groups; its 4-byte staging writes hit 32 distinct banks."""
+    ncg, nco = co // 4, ci // 8
+    row16 = LANE & 15
+
+    def distinct_phases(groups):
+        return all(len(set(groups[8 * p:8 * p + 8])) == 8 for p in range(4))
+
+    for s in range(4):
+        rows = s * 16 + row16
+        for j in range(co // 8):
+            c = 2 * j + (LANE >> 4)
+            assert distinct_phases(((rows * ncg + L.swizzle(ncg, rows, c)) % 8).tolist())
+    gq, tq = LANE // 4, LANE % 4
+    for nt in range(nco):
+        for m in (gq, gq + 8):
+            bank = ((m * nco + L.swizzle(nco, m, torch.full_like(m, nt))) * 4 + tq) % 32
+            assert len(set(bank.tolist())) == 32
+    for i0 in range(0, 16 * nco, 32):
+        m, c = (i0 + LANE) // nco, (i0 + LANE) % nco
+        assert distinct_phases(((m * nco + L.swizzle(nco, m, c)) % 8).tolist())

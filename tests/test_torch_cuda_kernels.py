@@ -1,9 +1,9 @@
 """The port's CUDA kernels (K1-K12, all of K2's modes) against their plain
 PyTorch twins on the card, at small shapes with odd sizes; bf16 K1, K3,
-K4, K5, K6, K7 and K9 run on the tensor-core route (``test_tc_*`` add
-whole-tile shapes); K2's modes, the weight gradients and the convs' stats are
-bitwise repeatable, K2 on two streams at once too, and need no zeroed
-output.  These tests need an NVIDIA GPU and skip without one; run them
+K4, K5, K6, K7, K8 and K9 run on the tensor-core route (``test_tc_*`` add
+whole-tile shapes); K2's modes, the weight gradients, the convs' stats and
+K8's dx are bitwise repeatable, K2 on two streams at once too, and need no
+zeroed output; the warp takes uint8, int and float labels alike.  These tests need an NVIDIA GPU and skip without one; run them
 there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -356,6 +356,15 @@ def test_tc_rejects(dev):
     K.conv_trans2x(torch.zeros((2, 2, 2, 32), device=dev), torch.zeros(32, 16, 2, 2, 2, device=dev),
                    torch.zeros(16, device=dev))
     assert K.conv_trans2x.tc_launches == t4
+    # K8 off TC_TRANS (no FMA fallback in bf16); f32 keeps the FMA kernel
+    n8, t8 = K.conv_trans2x_dx.launches, K.conv_trans2x_dx.tc_launches
+    for ci, co in ((16, 16), (32, 32), (128, 64), (64, 16)):
+        with pytest.raises(ValueError):
+            K.conv_trans2x_dx(torch.zeros((4, 4, 4, co), device=dev, dtype=bf),
+                              torch.zeros(ci, co, 2, 2, 2, device=dev))
+    assert (K.conv_trans2x_dx.launches, K.conv_trans2x_dx.tc_launches) == (n8, t8)
+    K.conv_trans2x_dx(torch.zeros((4, 4, 4, 16), device=dev), torch.zeros(32, 16, 2, 2, 2, device=dev))
+    assert (K.conv_trans2x_dx.launches, K.conv_trans2x_dx.tc_launches) == (n8 + 1, t8)
 
 
 def test_backward_rejects(dev):
@@ -417,28 +426,40 @@ def _warp_field(shape, dev, worst: bool):
 
 @pytest.mark.parametrize("window,shape,worst", [
     (w, shape, worst) for w in (True, False)
-    for shape, worst in (((12, 14, 16), False), ((12, 20, 16), False), ((24, 32, 28), True))
-] + [(False, (9, 13, 11), False)])
+    for shape, worst in (((12, 14, 16), False), ((12, 20, 16), False), ((24, 32, 28), True),
+                         ((48, 56, 48), False))
+] + [(False, (9, 13, 11), False), (False, (7, 5, 19), True)])
 def test_warp(dev, window, shape, worst):
     """Labels exactly and the image to f32 rounding of its peak, in both
-    modes and both semantics (odd sizes without the window)."""
+    modes and both semantics (odd sizes without the window; the stamp grid
+    48x56x48), the label as uint8 (the train path's type), int and float
+    alike."""
     rng = np.random.default_rng(sum(shape))
     img = torch.tensor(rng.random(shape, np.float32) * 2.5).to(dev)
     lab = torch.tensor((rng.random(shape) * 6).astype(np.float32) // 1).to(dev)
     coords = _warp_field(shape, dev, worst)
-    ki, kl = W.warp_image_label(img, lab, coords, window)
+    ki, kl = W.warp_image_label(img, lab.to(torch.uint8), coords, window)
     ti, tl = W.warp_image_label_plain(img, lab, coords, window)
     assert torch.equal(kl, tl)
     assert float((ki - ti).abs().max()) <= 1e-6 * float(ti.abs().max())
+    for other in (lab, lab.long()):
+        oi, ol = W.warp_image_label(img, other, coords, window)
+        assert torch.equal(oi, ki) and torch.equal(ol, kl)
     kv, tv = W.warp_linear(img, coords, window), W.warp_linear_plain(img, coords, window)
     assert float((kv - tv).abs().max()) <= 1e-6 * float(tv.abs().max())
 
 
 def test_warp_rejects(dev):
+    """Labels of 256 or more (float, int, or rounding up to 256) and
+    negative labels raise; so do odd sizes with the window and other
+    dtypes."""
     img = torch.zeros((8, 8, 8), device=dev)
     coords = torch.zeros((8, 8, 8, 3), device=dev)
-    with pytest.raises(ValueError):
-        W.warp_image_label(img, img + 256, coords, True)
+    for bad in (img + 256, (img + 300).long(), img + 255.5):
+        with pytest.raises(ValueError, match="labels must be below 256"):
+            W.warp_image_label(img, bad, coords, True)
+    with pytest.raises(ValueError, match="labels must not be negative"):
+        W.warp_image_label(img, img - 1, coords, True)
     with pytest.raises(ValueError):
         W.warp_linear(img[:7].contiguous(), coords, True)
     with pytest.raises(ValueError):
@@ -581,6 +602,37 @@ def test_tc_trans(dev, ci, co, act, dims):
     assert y.shape == (2 * dims[0], 2 * dims[1], 2 * dims[2], co)
     assert _rel(y, K.conv_trans2x_plain(x, w, b, pro)) < BF16_TOL
     assert (K.conv_trans2x.launches, K.conv_trans2x.tc_launches) == (n0 + 1, t0 + 1)
+
+
+@pytest.mark.parametrize("ci,co", [(32, 16), (64, 32)])
+@pytest.mark.parametrize("dims", [(3, 5, 7), (2, 3, 17), (2, 4, 32), (1, 3, 34), (2, 2, 20)])
+def test_tc_trans_dx(dev, ci, co, dims):
+    """bf16 K8 on the tensor cores against its twin: ragged and whole dx
+    k-rows (W = 7, 17, 32, 34, 20); two launches give the same bits;
+    tc_launches counts."""
+    rng = np.random.default_rng(ci + 2 * co + sum(dims))
+    g = _t(rng, (2 * dims[0], 2 * dims[1], 2 * dims[2], co), dev, torch.bfloat16)
+    w = _t(rng, (ci, co, 2, 2, 2), dev, scale=0.2)
+    n0, t0 = K.conv_trans2x_dx.launches, K.conv_trans2x_dx.tc_launches
+    dx = K.conv_trans2x_dx(g, w)
+    assert dx.dtype == torch.bfloat16 and dx.shape == (*dims, ci)
+    assert _rel(dx, K.conv_trans2x_dx_plain(g, w)) < BF16_TOL
+    assert torch.equal(dx, K.conv_trans2x_dx(g, w))
+    assert (K.conv_trans2x_dx.launches, K.conv_trans2x_dx.tc_launches) == (n0 + 2, t0 + 2)
+
+
+@pytest.mark.parametrize("ci,co", [(32, 16), (64, 32)])
+def test_tc_trans_dx_in_the_function(dev, ci, co):
+    """ConvTrans2xFn's backward in bf16 launches K8 on the tensor cores
+    only (tc_launches == launches), and its dx equals K8's."""
+    rng = np.random.default_rng(ci)
+    x = _t(rng, (3, 4, 9, ci), dev, torch.bfloat16).requires_grad_()
+    w, b = _t(rng, (ci, co, 2, 2, 2), dev, scale=0.2), _t(rng, co, dev)
+    gy = _t(rng, (6, 8, 18, co), dev, torch.bfloat16)
+    n0, t0 = K.conv_trans2x_dx.launches, K.conv_trans2x_dx.tc_launches
+    K.ConvTrans2xFn.apply(x, w, b).backward(gy)
+    assert K.conv_trans2x_dx.launches - n0 == K.conv_trans2x_dx.tc_launches - t0 == 1
+    assert torch.equal(x.grad, K.conv_trans2x_dx(gy, w))
 
 
 @pytest.mark.parametrize("ci,co", [(32, 16), (64, 32)])

@@ -18,6 +18,12 @@ tests/test_resample.py:166-195).
 K2's ``max``, ``sum`` and ``sqdiff`` twins against ``lane_max``,
 ``lane_sum`` and ``lane_sqdiff`` (Pallas, interpret mode) on a
 (D, rows, 128) volume, the lanes as channels.
+
+The kernel's own arithmetic, replayed in torch (no JAX): its lane map and
+``__shfl_xor`` tree against the twin's window anchors, its packed words
+against the twin's packing followed by the unpacking, bit for bit,
+and the label types the wrapper takes (uint8 as it is; others checked:
+256 or more, or negative, raise).
 """
 
 import functools
@@ -31,6 +37,7 @@ import jax.numpy as jnp
 
 from unet_studio_tpu.ops import packed as P
 from unet_studio_tpu.ops import resample as JR
+from unet_studio_tpu_torch.engine import train as TE
 from unet_studio_tpu_torch.ops import reduce as R
 from unet_studio_tpu_torch.ops import resample as TR
 from unet_studio_tpu_torch.ops import warp as W
@@ -198,3 +205,89 @@ def test_pack_image_label():
     tp, tpk = TR._pack_image_label(_t(img), _t(lab))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     assert float(tpk) == float(jpk)
+
+
+def _smooth_coords(shape):
+    """A moderate affine with a smooth wiggle, in torch (no JAX compile)."""
+    grid = TR.meshgrid_xyz(shape)
+    m = TR.affine_matrix(translation=(1.2, -0.7, 0.4), rotation=(0.1, -0.15, 0.2),
+                         scaling=(1.1, 0.9, 1.05), shape_dhw=shape)
+    return TR.apply_affine(grid + 0.7 * torch.sin(grid * 0.4), m)
+
+
+@pytest.mark.parametrize("shape", [(12, 14, 16), (10, 22, 26), (9, 13, 11)])
+def test_warp_lane_map_and_shuffle_anchors(shape):
+    """warp_kernel's lane map covers every output voxel once; its
+    __shfl_xor tree gives each lane the min and max floor over the voxels
+    of its 2x2x2 block that lie inside the output, so the anchors are the
+    twin's supercell anchors (even sizes), and at odd sizes the partial
+    edge blocks' min and max skip the voxels outside."""
+    z, y, x = W.warp_block_voxels(shape)
+    inside = (z < shape[0]) & (y < shape[1]) & (x < shape[2])
+    flat = ((z * shape[1] + y) * shape[2] + x)[inside]
+    assert torch.equal(flat.sort().values, torch.arange(int(np.prod(shape))))
+    zc, yc, xc = (t.clamp(max=n - 1) for t, n in zip((z, y, x), shape))
+    cell = TR._cell(_smooth_coords(shape), shape)
+    even = all(n % 2 == 0 for n in shape)
+    want_anchors = TR._supercell_anchors(cell, tuple(n // 2 for n in shape)) if even else None
+    pad = [(0, n % 2) for n in shape]
+    for a, (f, n) in enumerate(zip(cell.floor, shape)):
+        mn, mx = W.shuffle_block_minmax(f[zc, yc, xc], inside)
+        # the block's min and max floor over its voxels inside the output
+        lo = np.pad(f.numpy(), pad, constant_values=2**31 - 1)
+        hi = np.pad(f.numpy(), pad, constant_values=-(2**31))
+        blocks = [v.reshape(v.shape[0] // 2, 2, v.shape[1] // 2, 2, v.shape[2] // 2, 2)
+                  for v in (lo, hi)]
+        bmin = torch.from_numpy(blocks[0].min(axis=(1, 3, 5)))[zc // 2, yc // 2, xc // 2]
+        bmax = torch.from_numpy(blocks[1].max(axis=(1, 3, 5)))[zc // 2, yc // 2, xc // 2]
+        assert torch.equal(mn[inside], bmin[inside]) and torch.equal(mx[inside], bmax[inside])
+        if even:
+            got = W.window_anchor(mn, mx, n)
+            assert torch.equal(got[inside], want_anchors[a][zc // 2, yc // 2, xc // 2][inside])
+
+
+@pytest.mark.parametrize("peak", [2.5, 65535.0, 0.0])
+def test_packed_words_are_the_packing_unpacked(peak):
+    """The fields of the warp's packed word (its image part and label, as
+    f32) equal ``_pack_image_label`` followed by the unpacking of
+    ``_combine_packed_corners``, bit for bit (a zero as +0), on edge
+    values: 0, -0, below 0, the peak, just under it, values half a step
+    apart, labels 0 and 255; an all-zero image (peak 1e-12)."""
+    k = np.arange(0, 65536, 4099, dtype=np.float64)
+    steps = np.concatenate([(k + 0.5) / 65535 * peak, k / 65535 * peak])
+    img = np.concatenate([[0.0, -0.0, -1e-3, 1e-30, peak, peak * (1 - 2**-24)], steps])
+    img = torch.from_numpy(img.astype(np.float32))
+    if peak == 0.0:
+        img = torch.zeros_like(img)
+    lab = torch.from_numpy(np.resize(np.array([0, 255, 1, 254, 7], np.uint8), img.shape))
+    packed, pk = TR._pack_image_label(img, lab.float())
+    want_l = torch.floor(packed * (1.0 / 65536.0))
+    want_i = packed - want_l * 65536.0
+    words = W.pack_words(img, lab, pk)
+    got_i, got_l = (words & 0xFFFF).float(), (words >> 16).float()
+    assert torch.equal(got_i.view(torch.int32), want_i.view(torch.int32))
+    assert torch.equal(got_l, want_l) and float(want_l.max()) == 255.0
+
+
+def test_warp_label_types_and_range():
+    """uint8, int and float labels of the same values warp alike; a label
+    of 256 or more (after rounding), or a negative one, raises, as float
+    and as int."""
+    shape = (8, 10, 12)
+    img, lab = _volumes(shape, 4)
+    img, lab, coords = _t(img), _t(lab), _smooth_coords(shape)
+    ref_i, ref_l = W.warp_image_label(img, lab, coords, True)
+    for other in (lab.to(torch.uint8), lab.long()):
+        got_i, got_l = W.warp_image_label(img, other, coords, True)
+        assert torch.equal(got_i, ref_i) and torch.equal(got_l, ref_l)
+    for bad in (lab + 256.0, (lab + 300).long(), lab.clamp(max=0) + 255.6):
+        with pytest.raises(ValueError, match="labels must be below 256"):
+            W.warp_image_label(img, bad, coords, True)
+    with pytest.raises(ValueError, match="labels must not be negative"):
+        W.warp_image_label(img, lab - 1.0, coords, True)
+    # TrainEngine hands integer label batches in 0..255 over as uint8
+    batch = np.stack([lab.numpy(), lab.numpy() + 249.0])
+    assert TE._labels_u8(batch).dtype == np.uint8
+    assert np.array_equal(TE._labels_u8(batch), batch)
+    for other in (batch + 0.5, batch + 2.0, batch - 1.0):
+        assert TE._labels_u8(other) is other

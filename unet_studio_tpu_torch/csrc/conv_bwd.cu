@@ -39,9 +39,10 @@
 //    unet_studio_tpu/models/unet3d.py:288-329).  Threads of a row are
 //    ordered by x parity, so a warp mostly takes one tap count.
 // trans2x_dx_kernel (K8, replaces unet_studio_tpu/ops/packed.py:768
-//    _trans_dx_kernel): the input gradient of the ks2/stride-2 transposed
-//    conv, dx[i][ci] = sum_{p in {0,1}^3} sum_co W[ci][co][p] g[2i+p][co],
-//    a ks2/stride-2 conv of g.
+//    _trans_dx_kernel, in f32; bf16 runs on the tensor cores, trans_tc.cu
+//    trans2x_dx_tc_kernel): the input gradient of the ks2/stride-2
+//    transposed conv, dx[i][ci] = sum_{p in {0,1}^3} sum_co W[ci][co][p]
+//    g[2i+p][co], a ks2/stride-2 conv of g.
 // The input gradient of the stride-1 conv is K1 itself (csrc/conv.cu) on
 // g with flipped, transposed weights.
 //
@@ -53,7 +54,7 @@
 // GFLOP (K6, K7) or 8.5 GFLOP (K8, K9): bytes bound them too.  These run
 // on the CUDA cores in f32 FMA (no wgmma, no TMA), whose 67 TFLOP/s put
 // K5 at 1.7 ms at best; bf16 K5, K6 and K7 have tensor-core versions
-// (conv_tc.cu), and so has K9 (trans_tc.cu); K8 is later work.
+// (conv_tc.cu), and so have K8 and K9 (trans_tc.cu).
 
 #include "common.cuh"
 
@@ -374,18 +375,15 @@ int unet_conv3_s2_dx(const void* g, int co, const void* w, void* dx, int D, int 
   return (int)cudaGetLastError();
 }
 
-// g: (2D, 2H, 2W, co), w: (8, co, ci), dx: (D, H, W, ci)
+// f32 only (bf16 is trans_tc.cu's): g (2D, 2H, 2W, co), w (8, co, ci),
+// dx (D, H, W, ci)
 int unet_trans2x_dx(const void* g, int co, const void* w, void* dx, int D, int H, int W, int ci,
-                    int dtype, void* stream) {
+                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long n = (long)D * H * W;
   const dim3 grid((unsigned)((n + THREADS - 1) / THREADS), ci / CI_T);
-  if (dtype == DT_F32)
-    trans2x_dx_kernel<float><<<grid, THREADS, 0, s>>>((const float*)g, co, (const float*)w,
-                                                      (float*)dx, D, H, W, ci);
-  else
-    trans2x_dx_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        (const __nv_bfloat16*)g, co, (const __nv_bfloat16*)w, (__nv_bfloat16*)dx, D, H, W, ci);
+  trans2x_dx_kernel<float><<<grid, THREADS, 0, s>>>((const float*)g, co, (const float*)w,
+                                                    (float*)dx, D, H, W, ci);
   return (int)cudaGetLastError();
 }
 

@@ -1,31 +1,34 @@
 // bf16 tensor-core kernels of the ks2/stride-2 transposed convolution,
 // channels-last (D, H, W, C), f32 accumulation: the route of every bf16
-// call of K4 (conv_trans2x) and K9 (conv_trans2x_dw) for the (Ci, Co) of
-// ops/tc_layout.py TRANS_PAIRS, (32, 16) and (64, 32).  f32 calls keep the
-// FMA kernels (conv.cu trans2x_kernel, conv_bwd.cu conv_dw_kernel with
-// KS = 2), the exact oracle.
+// call of K4 (conv_trans2x), K8 (conv_trans2x_dx) and K9 (conv_trans2x_dw)
+// for the (Ci, Co) of ops/tc_layout.py TRANS_PAIRS, (32, 16) and (64, 32).
+// f32 calls keep the FMA kernels (conv.cu trans2x_kernel, conv_bwd.cu
+// trans2x_dx_kernel and conv_dw_kernel with KS = 2), the exact oracle.
 //
 // K4 trans2x_tc_kernel<CI, CO> replaces unet_studio_tpu/ops/packed.py:439
 //    _trans_kernel (conv_trans2x_up):
 //      y[2v + (rz, ry, rx)][co] = sum_ci act(a x[v] + b)[ci] W[ci][co][rz][ry][rx] + bias[co].
+// K8 trans2x_dx_tc_kernel<CI, CO> replaces unet_studio_tpu/ops/packed.py:768
+//    _trans_dx_kernel (in conv_trans2x_p's VJP):
+//      dx[v][ci] = sum_(rz, ry, rx) sum_co W[ci][co][rz][ry][rx] g[2v + (rz, ry, rx)][co].
 // K9 dw_trans_tc_kernel<CI, CO> replaces unet_studio_tpu/ops/packed.py:782
 //    _trans_dw_kernel (with _trans_extract_dw, in conv_trans2x_p's VJP):
 //      dW[ci][co][rz][ry][rx] = sum_v x[v][ci] g[2v + (rz, ry, rx)][co].
 //
-// What bounds them on the H100: at the flagship's level 0, x (96, 112, 96,
-// 32) and y or g (192, 224, 192, 16) in bf16, each moves 330 MB (x 66 MB,
-// the 8x larger volume 264 MB) for 8.5 GFLOP, 26 op/byte: 0.0986 ms at
-// 3.35 TB/s against 0.0086 ms at the bf16 tensor-core peak, so bytes.  An
-// output voxel (K4) or a g voxel (K9) meets one input voxel: no halo, no
-// padding, every byte is read or written once, and the kernels' work is to
-// keep the 8x larger volume streaming at full rate; the MMAs are a small
-// part of their time.
+// What bounds them on the H100: at the flagship's level 0, x or dx (96,
+// 112, 96, 32) and y or g (192, 224, 192, 16) in bf16, each moves 330 MB
+// (x 66 MB, the 8x larger volume 264 MB) for 8.5 GFLOP, 26 op/byte: 0.0986
+// ms at 3.35 TB/s against 0.0086 ms at the bf16 tensor-core peak, so
+// bytes.  An output voxel (K4) or a g voxel (K8, K9) meets one voxel of
+// the small volume: no halo, no padding, every byte is read or written
+// once, and the kernels' work is to keep the 8x larger volume streaming at
+// full rate; the MMAs are a small part of their time.
 //
-// Both kernels walk k-rows: the run of 16 input x from (z, y, x0).  For an
-// output parity slice s = (rz, ry), the 2 Co values (rx, co) of the run's
-// voxel m are the 2 Co elements from m * 2 Co on of one contiguous span of
-// the 2x-size volume's row (2z + rz, 2y + ry) from x = 2 x0
-// (ops/tc_layout.py trans_span): 16 rows of 2 Co, 1 KB at Co = 16.
+// All three walk k-rows: the run of 16 voxels of the small volume from (z,
+// y, x0).  For a parity slice s = (rz, ry), the 2 Co values (rx, co) of
+// the run's voxel m are the 2 Co elements from m * 2 Co on of one
+// contiguous span of the 2x-size volume's row (2z + rz, 2y + ry) from x =
+// 2 x0 (ops/tc_layout.py trans_span): 16 rows of 2 Co, 1 KB at Co = 16.
 //
 // K4: one GEMM per k-row, M = its 16 input voxels, K = Ci (2 or 4 k-steps),
 //    N = 8 Co in (rz, ry, rx, co) order (tc_layout.k4_weight_matrix).  The
@@ -39,6 +42,20 @@
 //    staging rows, and the slice's span leaves as 16-byte coalesced stores,
 //    voxels past the row's end (any W) masked.  The kernel writes 4x what it
 //    reads, so the store path is the design: whole spans, no block barrier.
+// K8: K4's GEMM read the other way: per k-row, M = its 16 dx voxels, K = 8
+//    Co in (rz, ry, rx, co) order (the 4 slices' spans one after the other,
+//    2 or 4 k-steps each), N = Ci (16 or 32 f32 accumulators a lane), B =
+//    pack_weights(w, "k8"), K4's matrix transposed, resident in shared
+//    memory (8 or 32 KB).  The kernel reads 4x what it writes, so the load
+//    path is the design: each warp walks its k-rows with a private 3-deep
+//    ring of cp.async stages (one k-row's 4 spans, 4 or 8 KB, XOR-swizzled,
+//    zero past the row's end), so two k-rows of g are in flight while one
+//    computes (96 or 64 KB in flight per SM, at 3 or 1 blocks of 60 or 136
+//    KB per SM); the A fragments come through plain ldmatrix (the spans
+//    are voxel-major with K contiguous).  The 16 dx voxels (1 or 2 KB,
+//    contiguous in dx) go through swizzled staging as bf16 and leave as
+//    16-byte coalesced stores, voxels past the row's end masked.  No
+//    atomics: bitwise repeatable.
 // K9: per k-row and slice, a GEMM with M = Ci (m-tiles of 16), N = 2 Co
 //    (rx, co), K = the k-row's 16 voxels: A = x's k-row and B = the slice's
 //    g span as 16 rows of 2 Co, both voxel-major (K-major), so both come
@@ -199,6 +216,121 @@ trans2x_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__
 }
 
 // ---------------------------------------------------------------------------
+// K8
+// ---------------------------------------------------------------------------
+
+template <int CI, int CO>
+struct TransDxCfg {
+  static constexpr int SN = 2 * CO;       // (rx, co) columns of a slice's span row
+  static constexpr int NCG = SN / 8;      // 16-byte chunks per span row
+  static constexpr int KSS = SN / 16;     // k-steps per slice
+  static constexpr int KS = 4 * KSS;      // k-steps, K = 8 Co
+  static constexpr int NT = CI / 8;       // n-tiles
+  static constexpr int NPAIR = CI / 16;   // packed n-tile pairs per k-step
+  static constexpr int NCO = CI / 8;      // 16-byte chunks per staged dx row
+  static constexpr int STAGES = 3;        // each warp's ring of k-rows
+  static constexpr int G_BYTES = 4 * TC_TX * SN * 2;
+  static constexpr int STG_BYTES = TC_TX * CI * 2;
+  static constexpr int WARP_BYTES = STAGES * G_BYTES + STG_BYTES;
+  static constexpr int W_BYTES = KS * NPAIR * 512;
+  static constexpr int SMEM = W_BYTES + TC_WARPS * WARP_BYTES;
+};
+
+template <int CI, int CO>
+__global__ void __launch_bounds__(TC_THREADS)
+trans2x_dx_tc_kernel(const __nv_bfloat16* __restrict__ g, const unsigned char* __restrict__ wpk,
+                     __nv_bfloat16* __restrict__ dx, int D, int H, int W) {
+  using C = TransDxCfg<CI, CO>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  unsigned char* wbuf = smem;
+  unsigned char* gbuf = smem + C::W_BYTES + warp * C::WARP_BYTES;  // this warp's ring
+  unsigned char* stg = gbuf + C::STAGES * C::G_BYTES;               // its dx rows
+  const uint32_t g_u32 = smem_u32(gbuf);
+
+  const int ntx = (W + TC_TX - 1) / TC_TX;
+  const long nrows = (long)ntx * H * D;  // k-rows of dx, x fastest
+  const long step = (long)gridDim.x * TC_WARPS;
+  long kr = (long)blockIdx.x * TC_WARPS + warp;
+
+  // cp.async the 4 g spans of k-row r into ring slot b: row s * 16 + m
+  // holds voxel m's (rx, co) of slice s; zero past the row's end
+  auto stage = [&](long r, int b) {
+    const int x0 = (int)(r % ntx) * TC_TX;
+    const long zy = r / ntx;
+    const int yy = (int)(zy % H), zz = (int)(zy / H);
+    const int nv = min(TC_TX, W - x0);
+    const __nv_bfloat16* base = g + (((long)(2 * zz) * 2 * H + 2 * yy) * 2 * W + 2 * x0) * CO;
+    unsigned char* dst = gbuf + b * C::G_BYTES;
+#pragma unroll
+    for (int i = lane; i < 4 * TC_TX * C::NCG; i += 32) {
+      const int row = i / C::NCG, pc = i % C::NCG, s = row / TC_TX, m = row % TC_TX;
+      const bool in = m < nv;
+      const __nv_bfloat16* src = base + (long)((s >> 1) * 2 * H + (s & 1)) * 2 * W * CO +
+                                 m * C::SN + swz<C::NCG>(row, pc) * 8;
+      cp_async16(dst + i * 16, in ? src : g, in ? 16 : 0);
+    }
+  };
+
+  copy_async(wbuf, wpk, C::W_BYTES);
+  cp_async_commit();
+#pragma unroll
+  for (int k = 0; k < C::STAGES - 1; ++k) {
+    if (kr + k * step < nrows) stage(kr + k * step, k);
+    cp_async_commit();
+  }
+  cp_async_wait<C::STAGES - 1>();  // this thread's share of the weights has landed
+  __syncthreads();                 // ... every thread's
+
+  int slot = 0;
+  for (; kr < nrows; kr += step, slot = slot == C::STAGES - 1 ? 0 : slot + 1) {
+    __syncwarp();  // every lane is done with the slot the next stage fills, and the staging rows
+    const long ahead = kr + (C::STAGES - 1) * step;
+    if (ahead < nrows) stage(ahead, slot == 0 ? C::STAGES - 1 : slot - 1);
+    cp_async_commit();
+    cp_async_wait<C::STAGES - 1>();  // this k-row's spans have landed (two more may fly)
+    __syncwarp();                    // ... every lane's
+    const uint32_t gs = g_u32 + slot * C::G_BYTES;
+    float acc[C::NT][4];
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[nt][j] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks) {
+      // k-step ks: chunks 2j, 2j + 1 of the 16 span rows of slice ks / KSS
+      const int j = ks % C::KSS, row = (ks / C::KSS) * TC_TX + (lane & 15);
+      uint32_t a[4], b[C::NT][2];
+      ldsm_x4(a, gs + row * C::SN * 2 + swz<C::NCG>(row, 2 * j + (lane >> 4)) * 16);
+      load_b<CI>(b, wbuf + ks * C::NPAIR * 512, lane);
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) mma_bf16(acc[nt], a, b[nt][0], b[nt][1]);
+    }
+    // bf16 into staging rows gq and gq + 8 (n-tile nt is logical chunk nt of a row)
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = gq + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(stg + m * CI * 2 + swz<C::NCO>(m, nt) * 16 + 4 * t) =
+            __floats2bfloat162_rn(acc[nt][2 * h], acc[nt][2 * h + 1]);
+      }
+    __syncwarp();
+    const int x0 = (int)(kr % ntx) * TC_TX;
+    const int nv = min(TC_TX, W - x0);
+    __nv_bfloat16* dst = dx + ((kr / ntx) * W + x0) * CI;
+#pragma unroll
+    for (int i = lane; i < TC_TX * C::NCO; i += 32) {
+      const int m = i / C::NCO, c = i % C::NCO;
+      if (m < nv)
+        *reinterpret_cast<uint4*>(dst + m * CI + c * 8) =
+            *reinterpret_cast<const uint4*>(stg + m * CI * 2 + swz<C::NCO>(m, c) * 16);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K9
 // ---------------------------------------------------------------------------
 
@@ -341,6 +473,17 @@ static void launch_trans(const void* x, const void* pa, const void* pb, int act,
 }
 
 template <int CI, int CO>
+static void launch_trans_dx(const void* g, const void* w, void* dx, int D, int H, int W,
+                            cudaStream_t s) {
+  using C = TransDxCfg<CI, CO>;
+  const long nrows = (long)((W + TC_TX - 1) / TC_TX) * H * D;
+  auto kernel = trans2x_dx_tc_kernel<CI, CO>;
+  const unsigned grid = grid_for(kernel, C::SMEM, (nrows + TC_WARPS - 1) / TC_WARPS, true);
+  kernel<<<grid, TC_THREADS, C::SMEM, s>>>((const __nv_bfloat16*)g, (const unsigned char*)w,
+                                           (__nv_bfloat16*)dx, D, H, W);
+}
+
+template <int CI, int CO>
 static void launch_trans_dw(const void* x, const void* g, int D, int H, int W, void* part,
                             int nblk, cudaStream_t s) {
   using C = TransDwCfg<CI, CO>;
@@ -369,6 +512,19 @@ int unet_trans2x_tc(const void* x, const void* pa, const void* pb, int act, int 
     launch_trans<32, 16>(x, pa, pb, act, w, bias, y, D, H, W, s);
   else if (ci == 64 && co == 32)
     launch_trans<64, 32>(x, pa, pb, act, w, bias, y, D, H, W, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// K8: g (2D, 2H, 2W, co) -> dx (D, H, W, ci); w pack_weights(w, "k8")
+int unet_trans2x_dx_tc(const void* g, int co, const void* w, void* dx, int D, int H, int W,
+                       int ci, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ci == 32 && co == 16)
+    launch_trans_dx<32, 16>(g, w, dx, D, H, W, s);
+  else if (ci == 64 && co == 32)
+    launch_trans_dx<64, 32>(g, w, dx, D, H, W, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

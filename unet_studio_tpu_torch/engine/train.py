@@ -65,6 +65,17 @@ class TrainParam:
     compute_dtype: str = "bfloat16"  # bf16 compute, f32 master weights
 
 
+def _labels_u8(labels: np.ndarray) -> np.ndarray:
+    """Integer labels in 0..255 as uint8, the type the warp kernel reads:
+    the range is checked here, on the host, once per batch assembled (one-
+    template training assembles it once), so no item's warp waits on the
+    card for it.  Other labels come back as they are."""
+    if labels.size and labels.min() >= 0 and labels.max() < 256 and \
+            np.array_equal(labels, np.floor(labels)):
+        return labels.astype(np.uint8)
+    return labels
+
+
 def item_rng(seed: int, seed_id: int) -> np.random.Generator:
     """The generator of sample ``seed_id``'s simulation and augmentation
     draws: ``np.random.default_rng([seed, seed_id])``."""
@@ -117,17 +128,19 @@ class TrainStep:
                    rng: np.random.Generator, *, plain: bool = False):
         """One item, image (D, H, W, C) and label (D, H, W) on the device:
         contrast simulation then the augmentation, with the draws of
-        ``rng`` (simulation first).  Returns f32 (image', label')."""
+        ``rng`` (simulation first).  Returns f32 (image', label').  The
+        label goes on in its dtype: a uint8 one reaches the warp as uint8,
+        which then makes the host wait for no range check."""
         opt = self.param.options
-        t1w, lab = image[..., 0].float(), label.float()
+        t1w = image[..., 0].float()
         if self.param.is_label and (is_template or not self.has_subjects):
-            x = simulate_modality_template(t1w, lab, self.n_classes,
+            x = simulate_modality_template(t1w, label, self.n_classes,
                                            draw_simulation(rng, self.n_classes))
         else:
             x = simulate_modality_subject(t1w, draw_simulation(rng, None))
-        draws = draw_augmentation(opt, tuple(lab.shape), rng, is_label=self.param.is_label,
+        draws = draw_augmentation(opt, tuple(label.shape), rng, is_label=self.param.is_label,
                                   device=self.device)
-        return visual_perception_augmentation(x[..., None], lab, draws, opt,
+        return visual_perception_augmentation(x[..., None], label, draws, opt,
                                               self.param.is_label, plain=plain)
 
     def grads(self, images, labels, need_shift=None, *, is_template=None, seeds=None,
@@ -346,8 +359,11 @@ class TrainEngine:
             images.append(img[..., None])
             labels.append(lab)
             self._slot_ready[slot] = True
+        labels = np.stack(labels)
+        if self.param.is_label:
+            labels = _labels_u8(labels)
         batch = (torch.from_numpy(np.stack(images)).to(self.device),
-                 torch.from_numpy(np.stack(labels)).to(self.device),
+                 torch.from_numpy(labels).to(self.device),
                  np.asarray([ds.is_template[r] for r in ids_tuple]),
                  np.asarray([ds.need_shift[r] for r in ids_tuple]))
         # cache only an all-template batch (no subject volume stays pinned)

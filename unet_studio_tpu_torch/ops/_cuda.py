@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 # the warp equals its twin's order of f32 operations only without
 # contraction of a * b + c into one rounding
-SOURCE_FLAGS = {"warp.cu": ("-fmad=false",), "conv_tc.cu": ("-Xptxas", "-v"),
+SOURCE_FLAGS = {"warp.cu": ("-fmad=false", "-Xptxas", "-v"), "conv_tc.cu": ("-Xptxas", "-v"),
                 "trans_tc.cu": ("-Xptxas", "-v"), "reduce.cu": ("-Xptxas", "-v")}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,8 +63,8 @@ _SIGNATURES = {
     "unet_conv_dw": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     # g, co, w, dx, D, H, W, ci, stream (f32)
     "unet_conv3_s2_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-    # g, co, w, dx, D, H, W, ci, dtype, stream
-    "unet_trans2x_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, co, w, dx, D, H, W, ci, stream (f32)
+    "unet_trans2x_dx": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # tensor-core (bf16) route: xa, pa_a, pb_a, act_a, xb, pa_b, pb_b, act_b,
     # ci, w, bias, y, part, stats, D, H, W, co, stream
     "unet_conv3_tc": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
@@ -85,11 +85,13 @@ _SIGNATURES = {
     "unet_conv3_s2_dx_tc": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # K4: x, pa, pb, act, ci, w, bias, y, D, H, W, co, stream (bf16)
     "unet_trans2x_tc": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K8: g, co, w, dx, D, H, W, ci, stream (bf16)
+    "unet_trans2x_dx_tc": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # K9: x, g, D, H, W, ci, co, part, nblk, out, stream (bf16)
     "unet_trans2x_dw_tc": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
-    # src, sd, sh, sw, coords, od, oh, ow, peak, out_img, out_lab, mode,
-    # window, stream
-    "unet_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P],
+    # src, lab, packed, sd, sh, sw, coords, od, oh, ow, peak, out_img,
+    # out_lab, mode, window, stream
+    "unet_warp": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

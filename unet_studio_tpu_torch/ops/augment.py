@@ -31,7 +31,8 @@ The JAX package's documented deviations are kept as they are
 rubber stamps at quarter resolution through the linear window sampler on
 a mean-pooled source, and half-resolution Perlin noise.
 
-Layout: image (D, H, W, C) f32; label (D, H, W) f32.
+Layout: image (D, H, W, C) f32; label (D, H, W) f32, or uint8, whose
+range the warp then needs no check of (``ops/warp.py``).
 """
 
 from __future__ import annotations
@@ -376,11 +377,13 @@ def visual_perception_augmentation(image: torch.Tensor, label: torch.Tensor, dra
                                    options: AugOptions = AugOptions(), is_label: bool = True, *,
                                    plain: bool = False):
     """Augment one item with the given draws.  image (D, H, W, C) f32 in
-    [0, 1]; label (D, H, W) f32.  Returns (image', label').  ``plain``
-    warps through the kernel's twins on any device."""
+    [0, 1]; label (D, H, W) f32 or uint8.  Returns f32 (image', label').
+    ``plain`` warps through the kernel's twins on any device."""
     opt, dr = options, draws
     warp_il = warp_image_label_plain if plain else warp_image_label
     warp_lin = warp_linear_plain if plain else warp_linear
+    label_u8 = label if label.dtype == torch.uint8 else None
+    label = label.float()
     dev = image.device
     d, h, w = label.shape
     shape_dhw = (d, h, w)
@@ -444,7 +447,11 @@ def visual_perception_augmentation(image: torch.Tensor, label: torch.Tensor, dra
     coords = warp_coords(dr, opt, shape_dhw, dev)
     use_sc = _supercell_warp_ok(opt, shape_dhw)
     if is_label:
-        ch0, out_label = warp_il(image[..., 0].contiguous(), label, coords, use_sc)
+        # a uint8 label reaches the warp as uint8: cropping and truncation
+        # only zero voxels, so after them the cast back is exact
+        wlab = label if label_u8 is None else (
+            label.to(torch.uint8) if dr.crop or dr.trunc else label_u8)
+        ch0, out_label = warp_il(image[..., 0].contiguous(), wlab, coords, use_sc)
         # extra channels: the window where the JAX package takes its
         # supercell sampler (one extra channel at most)
         rest = [warp_lin(image[..., c].contiguous(), coords, use_sc and channels <= 2)

@@ -25,7 +25,7 @@ kernel does not take.  The route goes by dtype: bf16 K1 (all four uses),
 K3, K5, K6 and K7 run on the tensor cores (``csrc/conv_tc.cu``, operands
 laid out by ``ops/tc_layout.py``) for the channel counts of
 ``KERNEL_CHANNELS``, ``tc_layout.DW_CI``/``DW_CO``, ``TC_S2`` and
-``TC_S2DX``, and so do K4 and K9 (``csrc/trans_tc.cu``) for ``TC_TRANS``;
+``TC_S2DX``, and so do K4, K8 and K9 (``csrc/trans_tc.cu``) for ``TC_TRANS``;
 f32 keeps the FMA kernels (``csrc/conv.cu``, ``csrc/conv_bwd.cu``), since
 f32 on the tensor cores would be TF32.
 ``<wrapper>.launches`` counts the kernel launches, and
@@ -51,7 +51,7 @@ from . import _cuda, tc_layout
 KERNEL_CHANNELS = (16, 32, 64)
 TC_S2DX = ((16, 32), (32, 64), (64, 128))  # bf16 K7: (dx channels, g channels)
 TC_S2 = tc_layout.S2_PAIRS  # bf16 K3 and K6: (Ci, Co)
-TC_TRANS = tc_layout.TRANS_PAIRS  # bf16 K4 and K9: the transposed conv's (Ci, Co)
+TC_TRANS = tc_layout.TRANS_PAIRS  # bf16 K4, K8 and K9: the transposed conv's (Ci, Co)
 # kinds of csrc/conv_tc.cu unet_conv3_tc_rows
 _KIND_K1, _KIND_DUAL, _KIND_ENTRY, _KIND_K3 = 0, 1, 2, 3
 
@@ -565,7 +565,8 @@ def conv_trans2x_dx(g, w):
     """K8: the (D, H, W, Ci) input gradient, in g's dtype, of the
     ks2/stride-2 transposed conv with weight ``w`` (Ci, Co, 2, 2, 2),
     from ``g`` (2D, 2H, 2W, Co).  Replaces unet_studio_tpu/ops/packed.py
-    ``_trans_dx_kernel`` (in ``conv_trans2x_p``'s VJP)."""
+    ``_trans_dx_kernel`` (in ``conv_trans2x_p``'s VJP).  bf16 runs on the
+    tensor cores for (Ci, Co) in ``TC_TRANS``."""
     if g.device.type == "cpu":
         return conv_trans2x_dx_plain(g, w)
     d2, h2, w2, co = g.shape
@@ -577,23 +578,31 @@ def conv_trans2x_dx(g, w):
         raise ValueError(f"conv_trans2x_dx: weight {tuple(w.shape)} for Co={co} "
                          "(Ci and Co must be multiples of 16)")
     dt = g.dtype
-    # (Ci, Co, kz, ky, kx) -> (kz, ky, kx, Co, Ci): parity-major
-    wk = w.detach().to(dtype=dt).permute(2, 3, 4, 1, 0).contiguous()
+    if dt == torch.bfloat16 and (ci, co) not in TC_TRANS:
+        raise ValueError(f"conv_trans2x_dx: bf16 has no tensor-core kernel for Ci={ci}, "
+                         f"Co={co} (takes {TC_TRANS})")
+    wdt = w.detach().to(dtype=dt)
     dx = torch.empty((d2 // 2, h2 // 2, w2 // 2, ci), dtype=dt, device=g.device)
     p = _cuda.ptr
     with torch.cuda.device(g.device):
-        rc = _cuda.lib().unet_trans2x_dx(p(g), co, p(wk), p(dx), d2 // 2, h2 // 2, w2 // 2, ci,
-                                         _cuda.DTYPE_CODES[dt], _cuda.stream_ptr(g))
+        if dt == torch.bfloat16:
+            wk = tc_layout.pack_weights(wdt, "k8")
+            rc = _cuda.lib().unet_trans2x_dx_tc(p(g), co, p(wk), p(dx), d2 // 2, h2 // 2,
+                                                w2 // 2, ci, _cuda.stream_ptr(g))
+        else:
+            # (Ci, Co, kz, ky, kx) -> (kz, ky, kx, Co, Ci): parity-major
+            wk = wdt.permute(2, 3, 4, 1, 0).contiguous()
+            rc = _cuda.lib().unet_trans2x_dx(p(g), co, p(wk), p(dx), d2 // 2, h2 // 2, w2 // 2,
+                                             ci, _cuda.stream_ptr(g))
     _cuda.check(rc, "conv_trans2x_dx")
-    conv_trans2x_dx.launches += 1
+    _count(conv_trans2x_dx, g)
     return dx
 
 
 WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x,
             conv3x3x3_dx, conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx, conv_trans2x_dx,
             conv_trans2x_dw)
-TC_WRAPPERS = (conv3x3x3_s1, conv3x3x3_entry, conv3x3x3_dual, conv3x3x3_s2, conv_trans2x,
-               conv3x3x3_dx, conv3x3x3_dw, conv3x3x3_s2_dw, conv3x3x3_s2_dx, conv_trans2x_dw)
+TC_WRAPPERS = WRAPPERS  # every bf16 launch of each is a tensor-core launch
 for _fn in WRAPPERS:
     _fn.launches = 0
     _fn.tc_launches = 0

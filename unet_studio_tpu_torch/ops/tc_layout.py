@@ -16,6 +16,8 @@ weights' device, before each launch:
   taps of ``s2dx_taps``, the 8 parity classes one after another;
 - ``k4_weight_matrix``: K4's B, K = Ci, N in (rz, ry, rx, co) order, so
   that one output parity slice (rz, ry) is 2 Co consecutive columns;
+- ``k8_weight_matrix``: K8's B, K4's matrix transposed: K in (rz, ry, rx,
+  co) order, so that one parity slice is 2 Co consecutive k, N = Ci;
 - ``pack_b``: B in mma fragment order, the layout the kernels read;
 - ``pack_weights``: one of those matrices packed, as one gather through
   an index built once per layout and weight shape (the wrappers' path:
@@ -37,9 +39,11 @@ which warp owns which (tap, m-tile) job, the grid and the partial buffer.
 The wrappers size the launches with them; the CPU tests replay the
 kernels' GEMMs through them against ``conv_dw_plain``.
 
-K4 and K9 (``trans2x_tc_kernel``, ``dw_trans_tc_kernel``, ks2/stride 2,
-no halo): the runs of 16 input x each warp or block takes (``k4_*``,
-``trans_dw_*``) and the output span of one parity slice (``trans_span``).
+K4, K8 and K9 (``trans2x_tc_kernel``, ``trans2x_dx_tc_kernel``,
+``dw_trans_tc_kernel``, ks2/stride 2, no halo): the runs of 16 input x
+each warp or block takes (``k4_*``, ``trans_dw_*``; K8's are K4's, over
+dx) and the span of the 2x-size volume that one parity slice of a run
+covers (``trans_span``).
 """
 
 from __future__ import annotations
@@ -134,6 +138,13 @@ def k4_weight_matrix(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 2, 3, 4, 1).reshape(ci, 8 * co)
 
 
+def k8_weight_matrix(w: torch.Tensor) -> torch.Tensor:
+    """The transposed conv's (Ci, Co, 2, 2, 2) -> (8*Co, Ci): K = ((rz * 2
+    + ry) * 2 + rx) * Co + co, N = ci.  Slice s = (rz, ry) of a k-row's g
+    is its K rows s * 2 Co to (s + 1) * 2 Co, in the span's (rx, co) order."""
+    return k4_weight_matrix(w).T
+
+
 LAYOUTS = {
     "k1": k1_weight_matrix,
     "k1_dual": functools.partial(k1_weight_matrix, nsrc=2),
@@ -141,6 +152,7 @@ LAYOUTS = {
     "s2dx": s2dx_weight_matrix,
     "k3": k3_weight_matrix,
     "k4": k4_weight_matrix,
+    "k8": k8_weight_matrix,
 }
 
 
@@ -379,7 +391,7 @@ def k4_tiles(dims) -> list[tuple[int, int, int]]:
 
 
 def trans_span(z: int, y: int, x0: int, s: int, dims, co: int) -> int:
-    """Element offset, in the (2D, 2H, 2W, Co) output (K4's y, K9's g), of
+    """Element offset, in the (2D, 2H, 2W, Co) volume (K4's y, K8's and K9's g), of
     parity slice s = (rz, ry) = (s >> 1, s & 1) of the run of 16 input x
     from (z, y, x0): output row (2z + rz, 2y + ry) from x = 2 x0.  The run's
     input voxel m owns the 2 Co elements (rx, co) from m * 2 Co on, so the
