@@ -69,6 +69,18 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    ``--action evaluate`` with the final model; then the convergence
    check of tests/test_convergence.py (validation dice error down by more
    than 40 %, template dice above 0.8).
+9. QC and the atlas through the CLI on the card, with phase 8's trained
+   model and BIDS directory: ``--action qc`` in bf16 (K1-K4 launches
+   counted around it, every bf16 launch on the tensor cores) and in f32,
+   under cuDNN's deterministic algorithms; each run's voxel counts equal
+   a host bincount of the loaded label, its wrong counts a host recount
+   from the level-0 logits of the same pair, and bf16 is held to f32;
+   then ``--action evaluate --template 0 --atlas ... --mosaic ...`` on a
+   synthetic 182x218x182 tissue template with a 6-region atlas on a
+   shifted 1.1 mm grid (the corrected atlas is written, the PNG's size is
+   the mosaic's), and ``--template 7`` returns 1.  Prints ``cli_qc``
+   (seconds per pair, split into load and device; the wrong ratios) and
+   ``cli_atlas`` (resample, fill, mosaic seconds).
 
 TF32 is switched off for cuDNN and matmuls, so every f32 comparison is
 f32 (cuDNN runs f32 convolutions in TF32 by default).
@@ -78,7 +90,10 @@ f32 (cuDNN runs f32 convolutions in TF32 by default).
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds one JSON object with every kernel's numbers (``launches``: per
 train step of two items; ``launches_evaluate``: in the CLI evaluate
-run, forward kernels; ``launches_cli_train``: in the CLI train run).
+run, forward kernels; ``launches_cli_train``: in the CLI train run;
+``launches_cli_qc``: in the CLI bf16 QC run).  The card's peaks come from
+``unet_studio_tpu_torch/utils/flops.chip_peaks``; a card it does not know
+fails the run.
 K2's sum and sqdiff modes have no caller on any path, as in the JAX
 package: their launches read 0.
 """
@@ -93,8 +108,10 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
+# the card's published HBM bytes/s and dense bf16 tensor-core FLOP/s, set
+# in main() from unet_studio_tpu_torch/utils/flops.chip_peaks
+HBM_BYTES_PER_S = None
+BF16_TENSOR_FLOPS = None
 F32_FLOPS = 67e12  # f32 outside the tensor cores
 
 # bf16 output of kernel vs twin on the same bf16 inputs: both accumulate in
@@ -137,6 +154,10 @@ STEP_BF16_GRAD_TOL = 0.2
 # K2 modes the JAX package defines and never calls: ported, timed and
 # checked, but no path launches them
 OFF_PATH = ("channel_sum", "channel_sqdiff")
+# QC in bf16 against QC in f32 on the same pair: the overall wrong ratio
+# (absolute), and each class's wrong count over that class's voxels
+QC_RATIO_TOL = 0.01
+QC_CLASS_TOL = 0.01
 
 
 def log(msg: str) -> None:
@@ -915,6 +936,26 @@ def phase7_augmentation_kernels(record, rnd, dev, card: str, shape=(192, 224, 19
     torch.cuda.empty_cache()
 
 
+def run_cli(argv):
+    """``cli.main(argv)`` with its standard output and error captured (and
+    echoed): (rc, both outputs, seconds to the card's last result)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from unet_studio_tpu_torch import cli
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return rc, out, time.perf_counter() - t
+
+
 def _f32v(v):
     import torch
 
@@ -928,12 +969,8 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
     the final model; then the convergence acceptance check of
     tests/test_convergence.py (16^3, its architecture and options, 45
     epochs)."""
-    import contextlib
-    import io
-
     import torch
 
-    from unet_studio_tpu_torch import cli
     from unet_studio_tpu_torch.data.bids import get_bids_pairs
     from unet_studio_tpu_torch.engine.evaluate import EvaluateEngine
     from unet_studio_tpu_torch.engine.train import TrainEngine, TrainParam
@@ -941,16 +978,6 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
     from unet_studio_tpu_torch.models.unet3d import UNet3d
     from unet_studio_tpu_torch.ops import conv as K
     from unet_studio_tpu_torch.ops.augment import AugOptions
-
-    def run_cli(argv):
-        buf = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        torch.cuda.synchronize()
-        out = buf.getvalue()
-        print(out, end="", flush=True)
-        return rc, out, time.perf_counter() - t
 
     bids = os.path.join(work, "bids")
     os.makedirs(bids, exist_ok=True)
@@ -1045,6 +1072,189 @@ def phase8_cli(records, work: str, card: str, native=(182, 218, 182), dev="cuda"
     require(dice > 0.8, f"trained-model template dice {dice}")
 
 
+def _write_assets(work: str, native):
+    """``<work>/atlas/human/human_tissue.nii.gz``: a synthetic 1 mm tissue
+    template (tissues 1-4 and a CSF label 5 inside an ellipsoidal head) on
+    the native grid; beside it ``regions_atlas.nii.gz``, 6 angular regions
+    on a 1.1 mm grid shifted by a fraction of a voxel, so that the
+    majority resample does work.  Returns the atlas path."""
+    from unet_studio_tpu_torch.io.nifti import write_nifti
+
+    d = os.path.join(work, "atlas", "human")
+    os.makedirs(d, exist_ok=True)
+    z, y, x = np.meshgrid(*[np.linspace(-1, 1, k, dtype=np.float32) for k in native],
+                          indexing="ij")
+    r = (z / 0.8) ** 2 + (y / 0.9) ** 2 + (x / 0.75) ** 2
+    tissue = np.where(r < 1.0, 2, 0).astype(np.int16)  # gray matter
+    tissue[r < 0.5] = 1  # white matter
+    tissue[(r < 1.0) & (z < -0.45)] = 3  # cerebellar gray matter
+    tissue[(x ** 2 + y ** 2 + z ** 2) < 0.02] = 4  # subcortical
+    tissue[(r >= 0.9) & (r < 1.0) & (z >= -0.45)] = 5  # CSF, dropped on load
+    write_nifti(os.path.join(d, "human_tissue.nii.gz"), tissue, (1.0, 1.0, 1.0), is_mni=True)
+    shape = tuple(int(k / 1.1) for k in native)
+    z, y, x = np.meshgrid(*[np.linspace(-1, 1, k, dtype=np.float32) for k in shape],
+                          indexing="ij")
+    inside = ((z / 0.8) ** 2 + (y / 0.9) ** 2 + (x / 0.75) ** 2) < 1.05
+    sector = np.floor((np.arctan2(y, x) + np.pi) / (2 * np.pi / 6)).clip(0, 5)
+    atlas = np.where(inside, 1 + sector, 0).astype(np.int16)
+    aff = np.diag([1.1, 1.1, 1.1, 1.0])
+    aff[:3, 3] = [-0.35, 0.45, 0.2]
+    path = os.path.join(d, "regions_atlas.nii.gz")
+    write_nifti(path, atlas, (1.1, 1.1, 1.1), aff, is_mni=True)
+    return path
+
+
+def phase9_qc_atlas(records, work: str, card: str, native=(182, 218, 182), dev="cuda") -> None:
+    """QC and the atlas through the CLI on the card, with phase 8's trained
+    model and BIDS directory (one 182x218x182 template): ``--action qc`` in
+    bf16 (launches counted) and f32, each checked against host recounts and
+    bf16 against f32; ``--action evaluate`` with ``--template 0 --atlas
+    --mosaic``; ``--template 7`` refused."""
+    import shutil
+    import struct
+
+    import torch
+
+    from unet_studio_tpu_torch.data.bids import get_bids_pairs, load_pair_on_model_grid
+    from unet_studio_tpu_torch.engine.atlas import AtlasParcellation
+    from unet_studio_tpu_torch.engine.qc import host_counts, run_qc
+    from unet_studio_tpu_torch.io.nifti import canonicalize_lps, read_nifti
+    from unet_studio_tpu_torch.models.serialize import load_model
+    from unet_studio_tpu_torch.models.unet3d import forward_fused
+    from unet_studio_tpu_torch.ops import conv as K
+    from unet_studio_tpu_torch.utils.mosaic import make_mosaic, save_mosaic_png
+
+    bids = os.path.join(work, "bids")
+    final = os.path.join(work, "trained.nz.final.nz.final.nz")
+    src = os.path.join(bids, "tpl-A_T1w.nii.gz")
+    # phase 8's evaluate wrote its result beside the template, where the
+    # BIDS matching would take it for a second pair (as in the reference)
+    if os.path.exists(src + ".result.nii.gz"):
+        os.remove(src + ".result.nii.gz")
+    images, labels = get_bids_pairs(bids)
+    require(len(images) == 1, f"QC pairs {images}")
+    report = final[: -len(".nz")] + ".error_report.tsv"
+    forward_kernels = [k for k, (r, _) in records.items() if r.get("launches_evaluate")]
+    model = load_model(final, device=dev)
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the C >= 128 levels run cuDNN
+    try:
+        qc = {}
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            for _, w in records.values():
+                w.launches = 0
+                w.tc_launches = 0
+            rc, out, cli_s = run_cli(["--action", "qc", "--model", final, "--bids", bids,
+                                      "--device", dev, "--compute_dtype", dtype_name])
+            require(rc == 0 and "QC report saved to" in out, f"cli qc {dtype_name}")
+            with open(report) as f:
+                rows = [line.rstrip("\n").split("\t") for line in f]
+            require(len(rows) == 2 and rows[0] == ["image", "ground_truth", "wrong_ratio",
+                                                   "wrong_ratio0", "wrong_ratio1",
+                                                   "wrong_ratio2"]
+                    and len(rows[1]) == 6 and not rows[1][2].startswith("error"),
+                    f"cli qc {dtype_name} report {rows}")
+            if dtype == torch.bfloat16:
+                launches = {k: w.launches for k, (_, w) in records.items()}
+                log(f"cli qc launches: {json.dumps(launches)}")
+                require(all(launches[k] > 0 for k in forward_kernels),
+                        "a K1-K4 kernel of the QC path was not launched")
+                require(all(w.tc_launches == w.launches for _, w in records.values()
+                            if w in K.TC_WRAPPERS),
+                        "a bf16 K1, K3 or K4 launch of the CLI QC run missed the tensor cores")
+                for k, (rec, w) in records.items():
+                    rec["launches_cli_qc"] = launches[k]
+                    if w in K.TC_WRAPPERS:
+                        rec["tc_launches_cli_qc"] = w.tc_launches
+            # the same pair once more through run_qc, for its counts and
+            # times: its report must be the CLI's, row for row
+            t = time.perf_counter()
+            cases = run_qc(model, images, labels, report + ".direct", compute_dtype=dtype,
+                           device=dev)
+            qc_s = time.perf_counter() - t
+            with open(report + ".direct") as f:
+                require([line.rstrip("\n").split("\t") for line in f] == rows,
+                         f"run_qc {dtype_name} report differs from the CLI's")
+            case = cases[0]
+            img, lab = load_pair_on_model_grid(images[0], labels[0], model.dim,
+                                               model.voxel_size, device=dev)
+            with torch.no_grad():
+                logits = forward_fused(model.spec, model.params(),
+                                       torch.from_numpy(img).to(dev)[None, ..., None],
+                                       compute_dtype=dtype, level0_only=True)[0][0]
+            voxels, wrong = host_counts(logits.cpu().numpy(), lab, model.out_count)
+            require(voxels.tolist() == np.bincount(lab.astype(np.int64).ravel(),
+                                                   minlength=3).tolist()
+                    == [s.voxels for s in case.stats],
+                    f"QC {dtype_name} voxel counts {[s.voxels for s in case.stats]} vs host "
+                    f"{voxels.tolist()}")
+            require(wrong.tolist() == [s.wrong for s in case.stats],
+                    f"QC {dtype_name} wrong counts {[s.wrong for s in case.stats]} vs host "
+                    f"{wrong.tolist()}")
+            qc[dtype_name] = {"cli_s": cli_s, "qc_s": qc_s, "load_s": case.load_s,
+                              "device_s": case.device_s, "wrong_ratio": case.overall.ratio(),
+                              "wrong": [s.wrong for s in case.stats],
+                              "voxels": [s.voxels for s in case.stats]}
+        del logits
+        bf, f32 = qc["bfloat16"], qc["float32"]
+        ratio_gap = abs(bf["wrong_ratio"] - f32["wrong_ratio"])
+        class_gap = max(abs(a - b) / max(v, 1)
+                        for a, b, v in zip(bf["wrong"], f32["wrong"], f32["voxels"]))
+        print(json.dumps({"cli_qc": {**qc, "ratio_gap": ratio_gap, "class_gap": class_gap,
+                                     "card": card}}), flush=True)
+        require(ratio_gap < QC_RATIO_TOL, f"QC bf16 vs f32 wrong ratio gap {ratio_gap}")
+        require(class_gap < QC_CLASS_TOL, f"QC bf16 vs f32 class wrong gap {class_gap}")
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+
+    # the atlas and the mosaic through the CLI's evaluate
+    atlas = _write_assets(work, native)
+    png = os.path.join(work, "mosaic.png")
+    cwd = os.getcwd()
+    os.chdir(work)  # the corrected atlas goes to corrected_atlas/ in the CWD
+    try:
+        shutil.rmtree("corrected_atlas", ignore_errors=True)
+        rc, out, eval_s = run_cli(["--action", "evaluate", "--model", final, "--source", src,
+                                   "--template", "0", "--atlas", atlas, "--asset_root", work,
+                                   "--mosaic", png, "--device", dev])
+        require(rc == 0 and "atlas loaded: 6 regions" in out, "cli evaluate with the atlas")
+        corrected = os.path.join(work, "corrected_atlas", "regions_atlas.corrected.nii.gz")
+        require(os.path.exists(corrected), "the corrected atlas was not written")
+        rc, out, _ = run_cli(["--action", "evaluate", "--model", final, "--source", src,
+                              "--template", "7", "--atlas", atlas, "--asset_root", work,
+                              "--device", dev])
+        require(rc == 1 and "error:" in out, "--template 7 must return 1 with error:")
+    finally:
+        os.chdir(cwd)
+    vol = canonicalize_lps(read_nifti(src)).data.astype(float)
+    shape = make_mosaic(vol, np.zeros(vol.shape, np.int32)).shape
+    with open(png, "rb") as f:
+        head = f.read(26)
+    width, height, depth, color = struct.unpack(">IIBB", head[16:26])
+    require(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
+            and (height, width, depth, color) == (shape[0], shape[1], 8, 2),
+            f"mosaic PNG {(height, width, depth, color)} vs {shape}")
+
+    # the same parcellation built again (a fresh cache), timed by part; it
+    # must give the corrected atlas the CLI wrote
+    parc = AtlasParcellation(cache_dir=os.path.join(work, "corrected_atlas_timed"), device=dev)
+    shutil.rmtree(parc.cache_dir, ignore_errors=True)
+    t = time.perf_counter()
+    require(parc.load_template(os.path.join(work, "atlas", "human", "human_tissue.nii.gz"))
+            and parc.load_atlas(atlas), f"atlas: {parc.error_msg}")
+    atlas_s = time.perf_counter() - t
+    require(np.array_equal(parc.atlas, read_nifti(corrected).data),
+            "the timed parcellation differs from the CLI's corrected atlas")
+    label = canonicalize_lps(read_nifti(src + ".result.nii.gz")).data
+    t = time.perf_counter()
+    save_mosaic_png(os.path.join(work, "mosaic_timed.png"), vol, label)
+    mosaic_s = time.perf_counter() - t
+    print(json.dumps({"cli_atlas": {"atlas_s": atlas_s, **parc.seconds, "mosaic_s": mosaic_s,
+                                    "cli_evaluate_s": eval_s,
+                                    "regions": parc.atlas_region_count,
+                                    "mosaic_shape": list(shape), "card": card}}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1065,6 +1275,14 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 3
+    from unet_studio_tpu_torch.utils.flops import chip_peaks, forward_cost
+
+    global HBM_BYTES_PER_S, BF16_TENSOR_FLOPS
+    peaks = chip_peaks(torch.cuda.get_device_name(0))
+    if peaks is None:
+        raise Failed(f"no published peaks for {torch.cuda.get_device_name(0)!r} in "
+                     "unet_studio_tpu_torch/utils/flops.py")
+    BF16_TENSOR_FLOPS, HBM_BYTES_PER_S = peaks
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1362,6 +1580,14 @@ def main() -> int:
         forward_ms = timed_ms(lambda: U.forward_fused(
             spec, params, x, compute_dtype=torch.bfloat16, level0_only=True), reps=3)
     log(f"forward_ms (bf16, level 0, kernel path): {forward_ms:.3f}")
+    # the flagship forward's FLOPs and bytes (utils/flops.forward_cost, which
+    # also counts the heads above level 0) against the card's peaks
+    fl, nb = forward_cost(spec, model.dim_dhw)
+    t_fl, t_nb = fl / BF16_TENSOR_FLOPS * 1e3, nb / HBM_BYTES_PER_S * 1e3
+    print(json.dumps({"forward_roofline": {
+        "flops": fl, "bytes": nb, "forward_ms": forward_ms, "flops_share": t_fl / forward_ms,
+        "bytes_share": t_nb / forward_ms, "bound_ms": max(t_fl, t_nb),
+        "bound_by": "bytes" if t_nb >= t_fl else "operations", "card": card}}), flush=True)
     print(json.dumps({"forward_profile": profile_forward(
         lambda: U.forward_fused(spec, params, x, compute_dtype=torch.bfloat16,
                                 level0_only=True),
@@ -1468,6 +1694,7 @@ def main() -> int:
     phase7_augmentation_kernels(record, rnd, dev, card)
     phase6_train_step(records, spec_arch, dev, card)
     phase8_cli(records, work, card)
+    phase9_qc_atlas(records, work, card)
 
     log("all phases passed; wall time in the prefix")
     print(card)

@@ -3,7 +3,9 @@ PyTorch twins on the card, at small shapes with odd sizes; bf16 K1, K3,
 K4, K5, K6, K7, K8 and K9 run on the tensor-core route (``test_tc_*`` add
 whole-tile shapes); K2's modes, the weight gradients, the convs' stats and
 K8's dx are bitwise repeatable, K2 on two streams at once too, and need no
-zeroed output; the warp takes uint8, int and float labels alike.  These tests need an NVIDIA GPU and skip without one; run them
+zeroed output; the warp takes uint8, int and float labels alike; QC's
+device counts equal a host recount, and the atlas resample's bits the
+CPU's.  These tests need an NVIDIA GPU and skip without one; run them
 there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -714,3 +716,60 @@ def test_k2_two_streams(dev, dtype):
     for i in range(2):
         for rep in got[i]:
             assert all(torch.equal(a, b) for a, b in zip(rep, want[i]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qc_counts_vs_host_recount(dev, dtype):
+    """QC's device counts (the flagship forward at 64^3 through K1-K4,
+    argmax, one integer bincount) equal a numpy recount from the same
+    logits; cuDNN (the C >= 128 levels) runs its deterministic algorithms,
+    so the two forwards give the same bits."""
+    from unet_studio_tpu_torch.engine.qc import host_counts, qc_counts
+    from unet_studio_tpu_torch.models.dsl import default_architecture
+    from unet_studio_tpu_torch.models.unet3d import UNet3d, forward_fused
+
+    model = UNet3d.create(1, 3, default_architecture(3), seed=0, device=dev)
+    rng = np.random.default_rng(5)
+    img = torch.tensor(rng.random((64, 64, 64), np.float32), device=dev)
+    lab = torch.tensor(rng.integers(-1, 4, (64, 64, 64)).astype(np.float32), device=dev)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts = qc_counts(model, img, lab, 0, dtype).cpu().numpy()
+        with torch.no_grad():
+            logits = forward_fused(model.spec, model.params(), img[None, ..., None],
+                                   compute_dtype=dtype, level0_only=True)[0][0]
+    finally:
+        torch.backends.cudnn.deterministic = was
+    voxels, wrong = host_counts(logits.cpu().numpy(), lab.cpu().numpy(), 3)
+    np.testing.assert_array_equal(counts[0, :3], voxels)
+    np.testing.assert_array_equal(counts[1, :3], wrong)
+    assert counts[0].sum() == 64 ** 3 and counts[1, 3] == 0 and wrong.sum() > 0
+
+
+def test_atlas_resample_card_vs_cpu(dev, tmp_path):
+    """The atlas's majority resample (an atlas on a shifted 1.1 mm grid)
+    and the corrected atlas built from it: the card's bits equal the
+    CPU's."""
+    from unet_studio_tpu_torch.engine.atlas import AtlasParcellation
+    from unet_studio_tpu_torch.io.nifti import write_nifti
+
+    rng = np.random.default_rng(9)
+    z, y, x = np.mgrid[0:40, 0:40, 0:40]
+    r = np.sqrt((z - 20) ** 2 + (y - 20) ** 2 + (x - 20) ** 2)
+    tissue = np.where(r < 16, 1 + (x > 20) + (z > 24), 0).astype(np.int16)
+    tissue[r < 5] = 5  # CSF, dropped on load
+    write_nifti(str(tmp_path / "t.nii.gz"), tissue, is_mni=True)
+    atlas = rng.integers(0, 7, (6, 6, 6)).repeat(6, 0).repeat(6, 1).repeat(6, 2)
+    aff = np.diag([1.1, 1.1, 1.1, 1.0])
+    aff[:3, 3] = [0.7, -0.4, 0.3]
+    write_nifti(str(tmp_path / "a.nii.gz"), atlas.astype(np.int16), (1.1, 1.1, 1.1), aff,
+                is_mni=True)
+    out = []
+    for where in (dev, "cpu"):
+        parc = AtlasParcellation(cache_dir=str(tmp_path / str(where)), device=where)
+        assert parc.load_template(str(tmp_path / "t.nii.gz"))
+        assert parc.load_atlas(str(tmp_path / "a.nii.gz")), parc.error_msg
+        out.append(parc)
+    np.testing.assert_array_equal(out[0].atlas, out[1].atlas)
+    assert out[0].atlas_region_count == 6

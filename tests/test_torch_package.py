@@ -9,7 +9,10 @@ import pytest
 import torch
 
 from unet_studio_tpu_torch import cli
+from unet_studio_tpu_torch.data.bids import load_pair_on_model_grid
+from unet_studio_tpu_torch.engine.atlas import AtlasParcellation
 from unet_studio_tpu_torch.engine.evaluate import EvaluateEngine
+from unet_studio_tpu_torch.engine.qc import run_qc
 from unet_studio_tpu_torch.engine.train import TrainEngine, TrainParam, build_train_step
 from unet_studio_tpu_torch.models.serialize import load_model
 from unet_studio_tpu_torch.models.unet3d import UNet3d
@@ -57,7 +60,7 @@ def test_no_jax_imports():
     assert not bad, bad
 
 
-def test_entry_points_need_a_card_or_cpu_request(monkeypatch):
+def test_entry_points_need_a_card_or_cpu_request(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_model(MODEL)
@@ -75,6 +78,16 @@ def test_entry_points_need_a_card_or_cpu_request(monkeypatch):
         TrainEngine(model, TrainParam())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--action", "train", "--model", MODEL, "--bids", ROOT])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_qc(model, [], [], str(tmp_path / "qc.tsv"))
+    run_qc(model, [], [], str(tmp_path / "qc.tsv"), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AtlasParcellation()
+    AtlasParcellation(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_pair_on_model_grid(MODEL, MODEL, (16, 16, 16), (1.0, 1.0, 1.0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--action", "qc", "--model", MODEL, "--bids", ROOT])
 
 
 def test_wrappers_take_no_other_device():

@@ -88,7 +88,8 @@ def test_bids_pairs_scan_and_sample_stream(tmp_path):
 def test_load_pair_on_model_grid_matches_jax(tmp_path):
     root = _bids(str(tmp_path / "bids"))
     images, labels = TB.get_bids_pairs(root)
-    oi, ol = TB.load_pair_on_model_grid(images[0], labels[0], (20, 18, 16), (0.9, 1.0, 1.1))
+    oi, ol = TB.load_pair_on_model_grid(images[0], labels[0], (20, 18, 16), (0.9, 1.0, 1.1),
+                                        device="cpu")
     ji, jl = JB.load_pair_on_model_grid(images[0], labels[0], (20, 18, 16), (0.9, 1.0, 1.1))
     np.testing.assert_allclose(oi, ji, rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(ol, jl)

@@ -1,12 +1,14 @@
 """Command-line interface of the port: the JAX package's parser
 (unet_studio_tpu/cli.py), flag for flag, with ``--device`` choosing
-where it runs (default ``cuda``).  ``--action train`` and ``evaluate``
-are ported; ``qc`` is not yet.
+where it runs (default ``cuda``).
 
     python -m unet_studio_tpu_torch --action train --model m.nz \\
         --bids bids_dir [--batch_size 2 --epoch 100 ...] [--device cpu|cuda]
     python -m unet_studio_tpu_torch --action evaluate --model m.nz \\
-        --source img.nii.gz [--device cpu|cuda] [--compute_dtype float32]
+        --source img.nii.gz [--device cpu|cuda] [--compute_dtype float32] \\
+        [--template 0 --atlas atlas.nii.gz --asset_root dir] [--mosaic out.png]
+    python -m unet_studio_tpu_torch --action qc --model m.nz --bids bids_dir \\
+        [--device cpu|cuda] [--compute_dtype float32]
 """
 
 from __future__ import annotations
@@ -19,13 +21,13 @@ import sys
 import numpy as np
 
 from .config.options import OPTION_TABLE, default_option_values
-from .utils.assets import find_asset_root
+from .utils.assets import find_asset_root, scan_templates
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="unet-studio-tpu-torch",
-        description="3D U-Net brain segmentation on an NVIDIA GPU (train/evaluate)",
+        description="3D U-Net brain segmentation on an NVIDIA GPU (train/evaluate/qc)",
     )
     p.add_argument("--action", choices=["train", "evaluate", "qc"], required=True)
     p.add_argument("--model", required=True, help="model .nz path or zoo name")
@@ -35,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default), cuda:N, or cpu; with no GPU only cpu runs")
     p.add_argument(
         "--thread_count", type=int, default=min(8, os.cpu_count() or 1),
-        help="host worker threads: the evaluate post-processing pool",
+        help="host worker threads: the QC load/resample pool and the evaluate "
+        "post-processing pool (qc.cpp:273)",
     )
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--learning_rate", type=float, default=0.001)
@@ -192,12 +195,6 @@ def cmd_evaluate(args) -> int:
     if not args.source:
         print("error: please specify --source", file=sys.stderr)
         return 1
-    if args.template is not None and args.atlas is not None:
-        print("error: --template/--atlas parcellation is not ported yet", file=sys.stderr)
-        return 1
-    if args.mosaic:
-        print("error: --mosaic is not ported yet", file=sys.stderr)
-        return 1
     files = get_files(args.source)
     if not files:
         print("error: no file specified at --source", file=sys.stderr)
@@ -209,6 +206,12 @@ def cmd_evaluate(args) -> int:
     print(f"loading network {model_path}")
     model = load_model(model_path, device=args.device)
     print(model.get_info())
+
+    if args.template is not None and args.atlas is not None:
+        err = load_parcellation(args)
+        if err:
+            print(f"error: {err}", file=sys.stderr)
+            return 1
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     engine = EvaluateEngine(model, compute_dtype=dtype,
@@ -222,14 +225,70 @@ def cmd_evaluate(args) -> int:
         if not engine.save_case(case, out, args.output_type):
             print(f"error: cannot save {out}", file=sys.stderr)
             return 1
+        if args.mosaic:
+            from .io.nifti import canonicalize_lps, read_nifti
+            from .utils.mosaic import save_mosaic_png
+
+            vol = canonicalize_lps(read_nifti(case.path)).data.astype(float)
+            if vol.ndim == 4:
+                vol = vol[0]
+            save_mosaic_png(args.mosaic, vol, case.label)
+            print(f"mosaic saved to {args.mosaic}")
+    return 0
+
+
+def load_parcellation(args) -> str:
+    """Load ``--template`` (a path, or an index into the asset root's
+    templates) and ``--atlas`` (evaluate.hpp:26-41); returns an error
+    message, or "" on success.  An index past the templates is an error,
+    as in the C++ original."""
+    from .engine.atlas import AtlasParcellation
+
+    seg_list, atlas_lists = scan_templates(find_asset_root(args.asset_root))
+    tmpl, atlas = args.template, args.atlas
+    if tmpl.isdigit():
+        idx = int(tmpl)
+        if idx >= len(seg_list):
+            return f"--template {idx}: no such template ({len(seg_list)} found)"
+        tmpl = seg_list[idx]
+        if not os.path.exists(atlas) and atlas_lists[idx]:
+            atlas = atlas_lists[idx][0]
+    parc = AtlasParcellation(device=args.device)
+    if not parc.load_template(tmpl) or not parc.load_atlas(atlas):
+        return parc.error_msg
+    print(f"atlas loaded: {parc.atlas_region_count} regions")
+    return ""
+
+
+def cmd_qc(args) -> int:
+    import torch
+
+    from .data.bids import get_bids_pairs
+    from .engine.qc import run_qc
+    from .models.serialize import load_model
+
+    if not args.bids:
+        print("error: please specify --bids", file=sys.stderr)
+        return 1
+    images, labels = get_bids_pairs(args.bids)
+    model_path = resolve_model_path(args)
+    if not os.path.exists(model_path):
+        print(f"error: cannot find model {model_path}", file=sys.stderr)
+        return 1
+    model = load_model(model_path, device=args.device)
+    stem = os.path.basename(model_path)
+    if stem.endswith(".nz"):
+        stem = stem[: -len(".nz")]
+    report = os.path.join(os.path.dirname(model_path) or ".", stem + ".error_report.tsv")
+    dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    run_qc(model, images, labels, report, compute_dtype=dtype, n_workers=args.thread_count,
+           device=args.device)
+    print(f"QC report saved to {report}")
     return 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.action == "qc":
-        print("error: --action qc is not ported yet", file=sys.stderr)
-        return 1
     # boot-time accelerator probe + self-test (check_cuda, main.cpp:93-102);
     # raises when --device asks for a card that is not there
     from .utils.device import check_cuda
@@ -239,6 +298,8 @@ def main(argv=None) -> int:
         print(f"warning: {err}", file=sys.stderr)
     if args.action == "train":
         return cmd_train(args)
+    if args.action == "qc":
+        return cmd_qc(args)
     return cmd_evaluate(args)
 
 

@@ -1,8 +1,11 @@
 """The augmentation option table (ids, defaults, hints): the source of
-the CLI's option flags, a copy of the JAX package's table
-(reference: options.txt, optiontablewidget.cpp:478-508).
+the CLI's option flags, a copy of the JAX package's table, and the parser
+of the reference's option files (reference: options.txt, postproc.txt,
+optiontablewidget.cpp:478-508).
 
-Kinds: ``prob`` (Off:25%:50%:75%:On, int 0..4), ``float``, ``int``.
+Line grammar: ``Category/Title/id/type-spec/default/hint`` with type-spec
+``Off:25%:50%:75%:On`` (kind ``prob``, int 0..4),
+``float:min:max:step:decimals``, ``int:min:max:step`` or ``button``.
 """
 
 from __future__ import annotations
@@ -15,13 +18,44 @@ class OptionItem:
     category: str
     title: str
     id: str
-    kind: str  # "prob" | "float" | "int"
+    kind: str  # "prob" | "float" | "int" | "button"
     default: float
     minimum: float = 0.0
     maximum: float = 0.0
     step: float = 0.0
     decimals: int = 0
     hint: str = ""
+
+
+def parse_option_line(line: str) -> OptionItem | None:
+    """One option-file line -> an OptionItem, or None for a line with
+    fewer than six fields."""
+    parts = line.rstrip("\n").split("/")
+    if len(parts) < 6:
+        return None
+    category, title, oid, type_spec, default, hint = parts[:6]
+    default_f = float(default.rstrip("f"))
+    ts = type_spec.split(":")
+    if ts[0] == "float":
+        return OptionItem(category, title, oid, "float", default_f, float(ts[1]), float(ts[2]),
+                          float(ts[3]), int(ts[4]) if len(ts) > 4 else 2, hint)
+    if ts[0] == "int":
+        return OptionItem(category, title, oid, "int", default_f, float(ts[1]), float(ts[2]),
+                          float(ts[3]), 0, hint)
+    if ts[0] == "button":
+        return OptionItem(category, title, oid, "button", default_f, hint=hint)
+    # probability combo (Off:25%:50%:75%:On)
+    return OptionItem(category, title, oid, "prob", default_f, 0, 4, 1, 0, hint)
+
+
+def load_options_file(path: str) -> list[OptionItem]:
+    items = []
+    with open(path) as f:
+        for line in f:
+            item = parse_option_line(line)
+            if item:
+                items.append(item)
+    return items
 
 
 def _prob(cat, title, oid, default, hint):

@@ -8,14 +8,20 @@ from __future__ import annotations
 
 import glob
 import os
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..io.nifti import canonicalize_lps, read_nifti
+from ..utils.device import resolve_device
 
 DSEG_SUFFIX = "_dseg.nii.gz"
+
+# what reading a damaged or mismatched pair raises (truncated gzip, bad
+# header, label grid unlike the image's); QC records these per pair
+PAIR_ERRORS = (OSError, EOFError, ValueError, zlib.error)
 
 
 def get_bids_pairs(bids: str) -> tuple[list[str], list[str]]:
@@ -66,13 +72,27 @@ class TrainingDataset:
     template_indices: list[int] = field(default_factory=list)
     subject_indices: list[int] = field(default_factory=list)
     test_indices: list[int] = field(default_factory=list)
+    errors: dict[int, str] = field(default_factory=dict)
 
     @classmethod
-    def scan(cls, images: list[str], labels: list[str], out_count: int) -> "TrainingDataset":
-        """Read every label once and classify the pairs; an unreadable
-        label raises."""
+    def scan(cls, images: list[str], labels: list[str], out_count: int,
+             strict: bool = True) -> "TrainingDataset":
+        """Read every label once and classify the pairs.  An unreadable
+        label raises; with ``strict=False`` it is recorded in ``ds.errors``
+        (by pair index) and classified as a non-template instead, so QC
+        goes on past a bad pair (qc.cpp:305-315)."""
         ds = cls(images=list(images), labels=list(labels))
-        info = {lbl: read_label_info(lbl) for lbl in dict.fromkeys(labels)}
+        info: dict[str, tuple[bool, int]] = {}
+        failed: dict[str, str] = {}
+        for lbl in dict.fromkeys(labels):
+            try:
+                info[lbl] = read_label_info(lbl)
+            except PAIR_ERRORS as e:
+                if strict:
+                    raise
+                info[lbl] = (False, 0)
+                failed[lbl] = str(e)
+        ds.errors = {i: failed[lbl] for i, lbl in enumerate(labels) if lbl in failed}
         max_template_label = 0
         for i, lbl in enumerate(labels):
             is_template, max_label = info[lbl]
@@ -109,15 +129,45 @@ class TrainingDataset:
         return pool[int(rng.integers(0, len(pool)))]
 
 
+_GEOMETRIC_PREPROC = (
+    "flip_x", "flip_y", "flip_z", "swap_xy", "swap_yz", "swap_xz",
+    "upsampling", "downsampling",
+)
+
+
+def _apply_preproc_pair(data, ldata, preproc: str):
+    """Apply a model's '+'-joined preproc chain to a native-grid (image,
+    label) pair before the model-grid resample: the per-volume operations
+    the evaluate engine applies to its inputs (evaluate.cpp:5-17).
+    Geometric operations move both volumes, so the label stays aligned;
+    intensity operations touch the image only.  The label is downsampled
+    by taking every second voxel (a mean of labels means nothing)."""
+    from ..engine.evaluate import run_preproc_op
+
+    for op in filter(None, preproc.split("+")):
+        data = run_preproc_op(data, op)
+        if op in _GEOMETRIC_PREPROC:
+            if op == "downsampling":
+                d, h, w = (s // 2 * 2 for s in ldata.shape)
+                ldata = np.ascontiguousarray(ldata[:d:2, :h:2, :w:2])
+            else:
+                ldata = run_preproc_op(ldata, op)
+    return data, ldata
+
+
 def load_pair_on_model_grid(image_path: str, label_path: str, model_dim_xyz, model_vs,
-                            device="cpu") -> tuple[np.ndarray, np.ndarray]:
+                            preproc: str = "", device=None) -> tuple[np.ndarray, np.ndarray]:
     """Load one (image, label) pair and resample it onto the model grid
     with the align-top field of view (read_image_and_label,
     train.cpp:13-40): the image trilinearly, normalized to [0, 1], the label
-    by majority vote, on ``device``.  Returns (image (D, H, W), label (D,
-    H, W)), f32 numpy."""
+    by majority vote, on ``device`` (default: the card).  ``preproc``: a
+    '+'-joined chain applied to the native volumes first (QC of a model
+    with preprocessing); as in the evaluate engine, up/downsampling leaves
+    the voxel size at its native value.  Returns (image (D, H, W), label
+    (D, H, W)), f32 numpy."""
     from ..ops.resample import resample_to_model_grid
 
+    dev = resolve_device(device)
     img = canonicalize_lps(read_nifti(image_path))
     lbl = canonicalize_lps(read_nifti(label_path))
     data = img.data.astype(np.float32)
@@ -129,12 +179,14 @@ def load_pair_on_model_grid(image_path: str, label_path: str, model_dim_xyz, mod
     if ldata.shape != data.shape:
         raise ValueError(f"label grid {ldata.shape} != image grid {data.shape} "
                          f"({label_path} vs {image_path})")
-    out_img = resample_to_model_grid(torch.from_numpy(np.ascontiguousarray(data)).to(device),
+    if preproc:
+        data, ldata = _apply_preproc_pair(data, ldata, preproc)
+    out_img = resample_to_model_grid(torch.from_numpy(np.ascontiguousarray(data)).to(dev),
                                      img.voxel_size, model_dim_xyz, model_vs).cpu().numpy()
     mx = out_img.max()
     if mx > 0:
         out_img /= mx
-    out_lbl = resample_to_model_grid(torch.from_numpy(np.ascontiguousarray(ldata)).to(device),
+    out_lbl = resample_to_model_grid(torch.from_numpy(np.ascontiguousarray(ldata)).to(dev),
                                      img.voxel_size, model_dim_xyz, model_vs,
                                      method="majority").cpu().numpy()
     return out_img.astype(np.float32), out_lbl.astype(np.float32)

@@ -1,7 +1,8 @@
-"""Host-side morphology for evaluate post-processing (the counterpart of
-unet_studio_tpu/ops/morphology.py): 6-connected components, the
-single-component reduction, defragmentation and smoothing.  Volumes are
-numpy (D, H, W); components come from scipy.ndimage."""
+"""Host-side morphology for evaluate post-processing and the atlas (the
+counterpart of unet_studio_tpu/ops/morphology.py): 6-connected
+components, the single-component reduction, defragmentation, smoothing
+and the region-grow label fill.  Volumes are numpy (D, H, W); components
+come from scipy.ndimage."""
 
 from __future__ import annotations
 
@@ -54,6 +55,40 @@ def apply_single_component(label_vol: np.ndarray, classes) -> np.ndarray:
         keep = largest_component(m)
         out[m & ~keep] = 0
     return out
+
+
+def fill_and_smooth_labels(mask: np.ndarray, atlas: np.ndarray) -> np.ndarray:
+    """Fill unlabeled voxels inside ``mask`` with the nearest atlas label,
+    then majority-smooth inside the mask (TIPL
+    ``morphology::fill_and_smooth_labels``, evaluate.cpp:160-175)."""
+    atlas = atlas.copy()
+    fill = mask.astype(bool) & (atlas == 0)
+    if fill.any() and (atlas > 0).any():
+        # nearest labeled voxel through the distance transform's indices
+        _, idx = ndimage.distance_transform_edt(atlas == 0, return_indices=True)
+        atlas[fill] = atlas[idx[0][fill], idx[1][fill], idx[2][fill]]
+    smoothed = _majority_filter(atlas)
+    atlas[mask.astype(bool)] = smoothed[mask.astype(bool)]
+    return atlas
+
+
+def _majority_filter(labels: np.ndarray) -> np.ndarray:
+    """Mode over the 6-neighbourhood and the centre, by per-class votes;
+    the centre weighs 1.5, so it wins a tie."""
+    uniq = np.unique(labels)
+    if uniq.size <= 1:
+        return labels
+    best_votes = np.zeros(labels.shape, np.float32)
+    best_label = labels.copy()
+    kernel = np.zeros((3, 3, 3), np.float32)
+    kernel[1, 1, :] = kernel[1, :, 1] = kernel[:, 1, 1] = 1.0
+    kernel[1, 1, 1] = 1.5
+    for c in uniq:
+        votes = ndimage.convolve((labels == c).astype(np.float32), kernel, mode="nearest")
+        better = votes > best_votes
+        best_votes = np.where(better, votes, best_votes)
+        best_label = np.where(better, c, best_label)
+    return best_label.astype(labels.dtype)
 
 
 def gaussian_smooth(vol: np.ndarray) -> np.ndarray:
