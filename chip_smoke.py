@@ -81,17 +81,49 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    the mosaic's), and ``--template 7`` returns 1.  Prints ``cli_qc``
    (seconds per pair, split into load and device; the wrong ratios) and
    ``cli_atlas`` (resample, fill, mosaic seconds).
+10. ``parallel/`` on two gloo ranks that share the card (one process
+   each, started here, each joined as a multi-host rank joins: ``RANK``,
+   ``WORLD_SIZE``, ``LOCAL_RANK`` 0, ``init_multihost`` with
+   ``backend="gloo"`` by name, since NCCL does not put two ranks on one
+   card, and ``make_mesh`` on ``"cuda"``, the card ``LOCAL_RANK``): (a) the
+   full-width train step on phase 6's phantoms and item seeds, one item
+   per rank, f32 under cuDNN's deterministic algorithms against the
+   one-process step on the same items (``DP_F32_TOL``), then bf16 with
+   each kernel's launches per rank counted around its first step (the two
+   ranks' launches add up to phase 6's step, each rank's are half of them
+   but for the warp's stamps, ``ITEM_DEPENDENT``; every bf16 conv launch
+   on the tensor cores), the step's and the all-reduce's seconds, the
+   parameters bitwise equal on both ranks; ``TrainEngine(mesh=)``'s epoch
+   99 on phase 8's BIDS directory (f32, each rank reads and synthesizes
+   its own item) against the one-process engine (``DP_F32_TOL`` on the
+   parameters and the training errors), rank 0 alone writing the
+   autosave; (b) ``make_spatial_infer`` at 192x224x192, one D-slab per
+   rank, against the unsharded plain forward in the same dtype (f32
+   ``F32_TOL``, bf16 labels ``LABEL_AGREE`` over the volume and over the
+   ``BOUNDARY_PLANES`` planes next to the slab boundary alone; bf16
+   labels against f32's also printed), and
+   ``make_spatial_train_step`` on two ranks against one rank
+   (``STEP_F32_TOL`` on the update and the level-0 losses); (c) the CLI's
+   ``--data_parallel 1`` (``device mesh: 1 x data (cuda)``) and
+   ``--data_parallel 2``, which returns 1 with ``error:`` on one card and
+   trains over NCCL on two, and ``--coordinator`` as a one-process world
+   (``RANK`` 0, ``WORLD_SIZE`` 1, NCCL on the card).  Prints ``parallel`` and ``parallel_cli``.
 
 TF32 is switched off for cuDNN and matmuls, so every f32 comparison is
 f32 (cuDNN runs f32 convolutions in TF32 by default).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # phases 1-10, one card
+    python3 chip_smoke.py --cards   # the data axis and the z-sharded path
+                                    # over NCCL on every card of the host,
+                                    # against one process; the CLI's
+                                    # --data_parallel n and --coordinator
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds one JSON object with every kernel's numbers (``launches``: per
 train step of two items; ``launches_evaluate``: in the CLI evaluate
 run, forward kernels; ``launches_cli_train``: in the CLI train run;
-``launches_cli_qc``: in the CLI bf16 QC run).  The card's peaks come from
+``launches_cli_qc``: in the CLI bf16 QC run; ``launches_dp_rank``: per
+rank of phase 10's bf16 step).  The card's peaks come from
 ``unet_studio_tpu_torch/utils/flops.chip_peaks``; a card it does not know
 fails the run.
 K2's sum and sqdiff modes have no caller on any path, as in the JAX
@@ -158,6 +190,21 @@ OFF_PATH = ("channel_sum", "channel_sqdiff")
 # (absolute), and each class's wrong count over that class's voxels
 QC_RATIO_TOL = 0.01
 QC_CLASS_TOL = 0.01
+# phase 10: the two-rank f32 step against one process on the same items,
+# each parameter's error over its largest value.  The per-item gradients
+# are the same computation; the ranks' sum adds in another order than one
+# process's loop, which shows only in f32 rounding
+DP_F32_TOL = 1e-5
+# the warp's linear mode runs once per rubber stamp, and each item draws
+# its own stamps: its launches split over the ranks as the items' do
+ITEM_DEPENDENT = ("warp_linear",)
+# phase 10: seconds the two ranks may take before the run fails (they
+# start, load the built kernels, and run their cases in about a minute)
+RANKS_TIMEOUT_S = 480
+# phase 10: the z-sharded bf16 labels are also held to LABEL_AGREE on the
+# planes within this many of a slab boundary alone, where a halo fault
+# would show first
+BOUNDARY_PLANES = 16
 
 
 def log(msg: str) -> None:
@@ -1255,6 +1302,564 @@ def phase9_qc_atlas(records, work: str, card: str, native=(182, 218, 182), dev="
                                     "mosaic_shape": list(shape), "card": card}}), flush=True)
 
 
+def _rank_main(rank: int, world: int, port: int, io: dict) -> None:
+    """One rank of phase 10 or of ``--cards``, joined as a rank of a
+    multi-host run joins: torchrun's ``RANK``, ``WORLD_SIZE`` and
+    ``LOCAL_RANK`` (its card, ``io["cards"][rank]``), then
+    ``init_multihost`` and ``rank_device``.  The backend is
+    ``io["backend"]``: phase 10's two ranks share one card, which NCCL
+    refuses, so they name gloo; ``--cards`` leaves it to
+    ``init_multihost`` (NCCL on cards).  Writes its readings to
+    ``io["out"] % rank``."""
+    import torch
+    import torch.distributed as dist
+
+    from unet_studio_tpu_torch.parallel.mesh import rank_device
+    from unet_studio_tpu_torch.utils.device import init_multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(io["cards"][rank]))
+    init_multihost(f"127.0.0.1:{port}", device=io["device"], backend=io["backend"])
+    dev = rank_device(io["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    try:
+        out = _rank_cases(world, io, dev)
+    finally:
+        dist.destroy_process_group()
+    with open(io["out"] % rank, "w") as f:
+        json.dump(out, f)
+
+
+def _spawn_ranks(world: int, io: dict) -> tuple[list, float]:
+    """Run ``_rank_main`` on ``world`` processes started here, under
+    ``RANKS_TIMEOUT_S``; (each rank's readings, seconds)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    for r in range(world):
+        if os.path.exists(io["out"] % r):
+            os.remove(io["out"] % r)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    ctx = mp.start_processes(_rank_main, args=(world, port, io), nprocs=world, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=max(0.0, RANKS_TIMEOUT_S - (time.perf_counter() - t))):
+            require(time.perf_counter() - t < RANKS_TIMEOUT_S,
+                    f"the ranks did not finish within {RANKS_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    res = []
+    for r in range(world):
+        with open(io["out"] % r) as f:
+            res.append(json.load(f))
+    return res, time.perf_counter() - t
+
+
+def _dp_reference(io: dict, n: int, dev) -> None:
+    """Phase 6's phantoms and item seeds for ``n`` items, and the f32
+    step of the flagship on them in this process (cuDNN's deterministic
+    algorithms), saved for the ranks to hold their step against."""
+    import torch
+
+    from unet_studio_tpu_torch.engine.optimizer import init_opt_state
+    from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step
+    from unet_studio_tpu_torch.models import unet3d as U
+    from unet_studio_tpu_torch.ops.augment import AugOptions
+
+    model = U.UNet3d.create(1, 3, io["arch"], seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    images, labels = phantom_batch(model.dim_dhw, n, gen, dev)
+    images, labels = images.clamp_min(0.0), labels.to(torch.uint8)
+    opt = AugOptions()
+    seeds = stamp_seeds(opt, 7, n)
+    torch.save({"images": images.cpu(), "labels": labels.cpu(), "seeds": seeds}, io["inputs"])
+    step32, _ = build_train_step(model, TrainParam(batch_size=n, compute_dtype="float32",
+                                                   options=opt), device=dev)
+    torch.backends.cudnn.deterministic = True
+    _, _, loss = step32(init_opt_state(model.params()), images, labels, None, io["lr"],
+                        seeds=seeds)
+    torch.backends.cudnn.deterministic = False
+    ref = {k: v.detach().cpu() for k, v in model.params().items()}
+    torch.save({**ref, "__loss__": loss.cpu()}, io["ref_dp32"])
+
+
+def _engine_epoch(io: dict, dev, mesh=None, model_path: str = "") -> dict:
+    """``TrainEngine``'s epoch 99 of 200 on the BIDS directory
+    ``io["bids"]`` (``io["engine_batch"]`` items, f32, the default
+    augmentation, cuDNN's deterministic algorithms), alone or as this
+    rank of ``mesh``; the epoch ends in the autosave to ``model_path``."""
+    import torch
+
+    from unet_studio_tpu_torch.data.bids import get_bids_pairs
+    from unet_studio_tpu_torch.engine.train import TrainEngine, TrainParam
+    from unet_studio_tpu_torch.models import unet3d as U
+    from unet_studio_tpu_torch.ops.augment import AugOptions
+
+    for f in (model_path, model_path + ".opt"):
+        if model_path and os.path.exists(f):
+            os.remove(f)
+    images, labels = get_bids_pairs(io["bids"])
+    model = U.UNet3d.create(1, 3, io["arch"], seed=0, device=dev)
+    eng = TrainEngine(model, TrainParam(image_file_name=images, label_file_name=labels,
+                                        batch_size=io["engine_batch"], epoch=200,
+                                        compute_dtype="float32", options=AugOptions()),
+                      model_path=model_path, device=dev, mesh=mesh)
+    torch.backends.cudnn.deterministic = True
+    try:
+        eng.start()
+        require(not eng.error_msg, f"TrainEngine.start: {eng.error_msg}")
+        eng.cur_epoch = 99
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run_epoch()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t
+        eng.stop()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {"params": {k: v.detach().cpu() for k, v in model.params().items()},
+            "training_errors": list(model.training_errors), "epoch_s": epoch_s,
+            "saved": [bool(model_path) and os.path.exists(model_path + s) for s in ("", ".opt")]}
+
+
+def _rank_cases(world: int, io: dict, dev) -> dict:
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from unet_studio_tpu_torch.engine.optimizer import init_opt_state
+    from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step
+    from unet_studio_tpu_torch.models import unet3d as U
+    from unet_studio_tpu_torch.ops.augment import AugOptions
+    from unet_studio_tpu_torch.parallel import make_mesh, shard_batch
+
+    def flat(params):
+        return torch.cat([p.detach().reshape(-1).float().cpu() for p in params.values()])
+
+    def same_on_every_rank(v) -> bool:
+        v = v.to(dev) if dist.get_backend() == "nccl" else v  # NCCL gathers on the card
+        got = [torch.empty_like(v) for _ in range(world)]
+        dist.all_gather(got, v)
+        return all(bool(torch.equal(got[0], g)) for g in got)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    inp = torch.load(io["inputs"])
+    images, labels, seeds = inp["images"].to(dev), inp["labels"].to(dev), inp["seeds"]
+    arch, opt, out = io["arch"], AugOptions(), {}
+    batch = images.shape[0]
+
+    # (a) the data axis: one item per rank, f32 against the one-process
+    # step (cuDNN's deterministic algorithms on both sides), then bf16
+    mesh = make_mesh(world, device=io["device"])
+    require(mesh.device == dev, f"make_mesh put rank {mesh.rank} on {mesh.device}, not {dev}")
+    rows = shard_batch(mesh, images, labels)
+    my_seeds = shard_batch(mesh, seeds)
+    model = U.UNet3d.create(1, 3, arch, seed=0, device=dev)
+    step32, _ = build_train_step(model, TrainParam(batch_size=batch, compute_dtype="float32",
+                                                   options=opt), mesh=mesh)
+    torch.backends.cudnn.deterministic = True
+    split = {}
+    (_, _, loss), step_s = timed(lambda: step32(init_opt_state(model.params()), *rows, None,
+                                                io["lr"], seeds=my_seeds, timings=split))
+    torch.backends.cudnn.deterministic = False
+    ref = torch.load(io["ref_dp32"])
+    worst, name = max((float((p.detach().cpu() - ref[k]).abs().max())
+                       / float(ref[k].abs().max().clamp_min(1e-30)), k)
+                      for k, p in model.params().items())
+    out["dp_f32"] = {"param_rel_err": worst, "worst_tensor": name, "loss": float(loss),
+                     "loss_one_process": float(ref["__loss__"]), "step_s": step_s, "split": split,
+                     "bitwise_across_ranks": same_on_every_rank(flat(model.params()))}
+    del model, step32, ref
+    torch.cuda.empty_cache()
+
+    # TrainEngine with the mesh: each rank reads and synthesizes its own
+    # items, rank 0 alone autosaves; against the one-process engine
+    eng = _engine_epoch(io, dev, mesh, io["engine_model"] % mesh.rank)
+    ref = torch.load(io["ref_engine"])
+    out["engine"] = {
+        "param_rel_err": max(float((p - ref["params"][k]).abs().max())
+                             / float(ref["params"][k].abs().max().clamp_min(1e-30))
+                             for k, p in eng["params"].items()),
+        "training_errors": eng["training_errors"],
+        "training_errors_one_process": ref["training_errors"], "epoch_s": eng["epoch_s"],
+        "saved": eng["saved"],
+        "bitwise_across_ranks": same_on_every_rank(torch.cat(
+            [p.reshape(-1).float() for p in eng["params"].values()]))}
+    del eng, ref
+    torch.cuda.empty_cache()
+    if io["wrappers"] is None:
+        return {**out, **_spatial_case(world, io, dev, images, labels, flat, same_on_every_rank,
+                                       timed)}
+
+    wrappers = {k: getattr(importlib.import_module(m), n) for k, (m, n) in io["wrappers"].items()}
+    model = U.UNet3d.create(1, 3, arch, seed=0, device=dev)
+    step16, _ = build_train_step(model, TrainParam(batch_size=batch, options=opt), mesh=mesh)
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "tc_launches"):
+            w.tc_launches = 0
+    state = init_opt_state(model.params())
+    split1 = {}
+    (state, _, loss1), step1_s = timed(lambda: step16(state, *rows, None, io["lr"],
+                                                      seeds=my_seeds, timings=split1))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    tc = {k: w.tc_launches for k, w in wrappers.items() if hasattr(w, "tc_launches")}
+    split2 = {}
+    (_, _, loss2), step2_s = timed(lambda: step16(state, *rows, None, io["lr"], seeds=my_seeds,
+                                                  timings=split2))
+    out["dp_bf16"] = {"launches": launches, "tc_launches": tc, "step1_s": step1_s,
+                      "split1": split1, "step2_s": step2_s, "split2": split2,
+                      "losses": [float(loss1), float(loss2)],
+                      "bitwise_across_ranks": same_on_every_rank(flat(model.params()))}
+    del model, step16, state
+    torch.cuda.empty_cache()
+    return {**out, **_spatial_case(world, io, dev, images, labels, flat, same_on_every_rank,
+                                   timed)}
+
+
+def _spatial_case(world, io, dev, images, labels, flat, same_on_every_rank, timed) -> dict:
+    """The z-sharded forward and train step of the first phantom on a
+    ``(world / n_space, n_space)`` mesh, one D-slab per space rank."""
+    import torch
+    import torch.distributed as dist
+
+    from unet_studio_tpu_torch.engine.optimizer import init_opt_state
+    from unet_studio_tpu_torch.models import unet3d as U
+    from unet_studio_tpu_torch.parallel import (
+        make_mesh,
+        make_spatial_infer,
+        make_spatial_train_step,
+        spatial_sharding,
+    )
+
+    arch = io["arch"]
+    smesh = make_mesh(world // io["n_space"], io["n_space"], device=io["device"])
+    sl = spatial_sharding(smesh, images.shape[1])
+    # the planes next to this slab's boundaries with its z neighbours
+    band = torch.zeros(sl.stop - sl.start, dtype=torch.bool, device=dev)
+    if smesh.space_index > 0:
+        band[:BOUNDARY_PLANES] = True
+    if smesh.space_index < smesh.n_space - 1:
+        band[-BOUNDARY_PLANES:] = True
+    x, lab = images[:1, sl].contiguous(), labels[:1, sl].contiguous()
+    model = U.UNet3d.create(1, 3, arch, seed=0, device=dev)
+    params = model.params()
+    ref = torch.load(io["ref_spatial"])
+    r32 = ref["logits"][:, sl].to(dev)
+    y32, infer32_s = timed(lambda: make_spatial_infer(model, smesh, torch.float32)(params, x))
+    err32 = float((y32 - r32).abs().max() / r32.abs().max())
+    y16, infer16_s = timed(lambda: make_spatial_infer(model, smesh, torch.bfloat16)(params, x))
+    lab16 = y16.argmax(-1)
+    same16 = lab16 == ref["labels_bf16"][:, sl].to(dev)
+    agree = torch.stack([same16.sum().float(), (lab16 == r32.argmax(-1)).sum().float(),
+                         torch.tensor(float(lab16.numel()), device=dev),
+                         same16[:, band].sum().float(),
+                         torch.tensor(float(same16[:, band].numel()), device=dev)])
+    dist.all_reduce(agree)
+    del y32, y16, r32, lab16
+    before = flat(params)
+    step = make_spatial_train_step(model, smesh)
+    torch.backends.cudnn.deterministic = True
+    (params, _, lvl0), spatial_step_s = timed(lambda: step(params, init_opt_state(params), x,
+                                                           lab, io["spatial_lr"]))
+    torch.backends.cudnn.deterministic = False
+    after = flat(params)
+    upd, ref_upd = after - before, ref["params_after"] - before
+    return {"spatial": {
+        "infer_f32_rel_err": err32, "infer_bf16_label_agreement": float(agree[0] / agree[2]),
+        "infer_bf16_label_agreement_boundary": float(agree[3] / agree[4]),
+        "infer_bf16_vs_f32_label_agreement": float(agree[1] / agree[2]),
+        "infer_f32_s": infer32_s, "infer_bf16_s": infer16_s,
+        "train_update_l2_rel": float((upd - ref_upd).norm() / ref_upd.norm()),
+        "train_lvl0": lvl0.tolist(), "train_lvl0_one_rank": ref["lvl0"].tolist(),
+        "train_step_s": spatial_step_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "bitwise_across_ranks": same_on_every_rank(after)}}
+
+
+def _spatial_reference(io: dict, dev) -> None:
+    """The unsharded plain forward of the first phantom (f32 logits, bf16
+    labels) and the z-sharded train step on one rank, saved for the
+    ranks."""
+    import torch
+
+    from unet_studio_tpu_torch.engine.optimizer import init_opt_state
+    from unet_studio_tpu_torch.models import unet3d as U
+    from unet_studio_tpu_torch.parallel import make_mesh, make_spatial_train_step
+
+    inp = torch.load(io["inputs"])
+    image, label = inp["images"][:1].to(dev), inp["labels"][:1].to(dev)
+    model = U.UNet3d.create(1, 3, io["arch"], seed=0, device=dev)
+    torch.backends.cudnn.deterministic = True
+    with torch.no_grad():
+        logits = U.forward(model.spec, model.params(), image)[0].cpu()
+        labels16 = U.forward(model.spec, model.params(), image,
+                             compute_dtype=torch.bfloat16)[0].argmax(-1).to(torch.uint8).cpu()
+    step = make_spatial_train_step(model, make_mesh(1, 1, device=dev))
+    params, _, lvl0 = step(model.params(), init_opt_state(model.params()), image, label,
+                           io["spatial_lr"])
+    torch.backends.cudnn.deterministic = False
+    torch.save({"logits": logits, "labels_bf16": labels16,
+                "params_after": torch.cat([p.detach().reshape(-1).cpu() for p in params.values()]),
+                "lvl0": lvl0.cpu()}, io["ref_spatial"])
+
+
+def _check_engine(res) -> None:
+    """Each rank's ``TrainEngine`` epoch against the one-process engine;
+    rank 0 alone wrote the autosave."""
+    for r, rr in enumerate(res):
+        e = rr["engine"]
+        require(e["param_rel_err"] < DP_F32_TOL and e["bitwise_across_ranks"]
+                and np.allclose(e["training_errors"], e["training_errors_one_process"],
+                                rtol=DP_F32_TOL, atol=0.0),
+                f"rank {r}: the TrainEngine epoch against one process: {e}")
+        require(e["saved"] == [r == 0] * 2, f"rank {r} autosave written: {e['saved']}")
+
+
+def _check_spatial(res) -> None:
+    for r, rr in enumerate(res):
+        sp = rr["spatial"]
+        require(sp["bitwise_across_ranks"], f"rank {r}: the ranks' parameters differ")
+        require(sp["infer_f32_rel_err"] < F32_TOL
+                and sp["infer_bf16_label_agreement"] > LABEL_AGREE
+                and sp["infer_bf16_label_agreement_boundary"] > LABEL_AGREE,
+                f"rank {r}: the z-sharded forward against the unsharded one: {sp}")
+        require(sp["train_update_l2_rel"] < STEP_F32_TOL
+                and max(abs(a - b) / abs(b) for a, b in zip(sp["train_lvl0"],
+                                                            sp["train_lvl0_one_rank"]))
+                < STEP_F32_TOL,
+                f"rank {r}: the z-sharded train step against one rank: {sp}")
+
+
+def phase10_parallel(records, work: str, card: str, arch: str, dev) -> None:
+    """The data axis and the z-sharded path on two gloo ranks that share
+    the card (one process each, started here), each against one process
+    on the same inputs: (a) the full-width train step, one item per rank,
+    f32 and bf16, with each kernel's launches per rank; (b)
+    ``make_spatial_infer`` and ``make_spatial_train_step`` at
+    192x224x192; (c) the CLI's ``--data_parallel``."""
+    import torch
+
+    d10 = os.path.join(work, "phase10")
+    os.makedirs(d10, exist_ok=True)
+    io = {"arch": arch, "lr": 1e-2, "spatial_lr": 1e-3, "backend": "gloo",
+          "device": dev.type, "cards": [0, 0], "n_space": 2,
+          "inputs": os.path.join(d10, "inputs.pt"), "ref_dp32": os.path.join(d10, "dp32.pt"),
+          "ref_spatial": os.path.join(d10, "spatial.pt"),
+          "bids": os.path.join(work, "bids"), "engine_batch": 2,
+          "ref_engine": os.path.join(d10, "engine.pt"),
+          "engine_model": os.path.join(d10, "engine_rank%d.nz"),
+          "out": os.path.join(d10, "rank%d.json"),
+          "wrappers": {k: (w.__module__, w.__name__) for k, (_, w) in records.items()}}
+    t = time.perf_counter()
+    _dp_reference(io, 2, dev)
+    _spatial_reference(io, dev)
+    torch.save(_engine_epoch(io, dev), io["ref_engine"])
+    refs_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res, ranks_s = _spawn_ranks(2, io)
+
+    # the launches of each kernel on each rank, against phase 6's step of
+    # the same two items in one process
+    per_rank = [rr["dp_bf16"]["launches"] for rr in res]
+    for k, (rec, w) in records.items():
+        rec["launches_dp_rank"] = [pr[k] for pr in per_rank]
+    bad = [k for k, (rec, _) in records.items() if k not in OFF_PATH and (
+        sum(rec["launches_dp_rank"]) != rec["launches"] or min(rec["launches_dp_rank"]) == 0
+        or (k not in ITEM_DEPENDENT and rec["launches_dp_rank"] != [rec["launches"] // 2] * 2))]
+    tc_bad = [k for rr in res for k, v in rr["dp_bf16"]["tc_launches"].items()
+              if v != rr["dp_bf16"]["launches"][k]]
+    summary = {"ranks": 2, "backend": "gloo", "device": "cuda:0 (shared)", "card": card,
+               "one_process_refs_s": refs_s, "ranks_wall_s": ranks_s,
+               "rank0": res[0], "rank1": {k: res[1][k] for k in ("dp_f32", "dp_bf16", "engine")},
+               "launches_per_rank": {k: rec["launches_dp_rank"] for k, (rec, _) in records.items()}}
+    log("phase 10 launches per rank (one item each): " + json.dumps(summary["launches_per_rank"]))
+    print(json.dumps({"parallel": summary}), flush=True)
+    require(not bad, f"kernel launches per rank against the one-process step: {bad}")
+    require(not tc_bad, f"a bf16 conv launch of a rank missed the tensor cores: {tc_bad}")
+    for r, rr in enumerate(res):
+        require(rr["dp_f32"]["param_rel_err"] < DP_F32_TOL,
+                f"rank {r}: the two-rank f32 step against one process: {rr['dp_f32']}")
+        require(all(rr[c]["bitwise_across_ranks"] for c in ("dp_f32", "dp_bf16")),
+                f"rank {r}: the ranks' parameters differ")
+        require(all(np.isfinite(rr["dp_bf16"]["losses"])), f"rank {r}: bf16 losses")
+    _check_engine(res)
+    _check_spatial(res)
+
+    # (c) the CLI: one rank; two ranks where there are two cards, and
+    # else the refusal
+    bids = os.path.join(work, "bids")
+    m = os.path.join(d10, "cli.nz")
+    for f in (m, m + ".final.nz"):
+        if os.path.exists(f):
+            os.remove(f)
+    base = ["--action", "train", "--model", m, "--bids", bids, "--batch_size", "2", "--epoch",
+            "1", "--device", dev.type]
+    rc, out, cli1_s = run_cli(base + ["--data_parallel", "1"])
+    require(rc == 0 and f"device mesh: 1 x data ({dev.type})" in out, "cli --data_parallel 1")
+    rc, out, cli2_s = run_cli(base + ["--data_parallel", "2"])
+    if torch.cuda.device_count() >= 2:
+        require(rc == 0 and f"device mesh: 2 x data ({dev.type})" in out,
+                "cli --data_parallel 2 over NCCL")
+    else:
+        require(rc == 1 and "error:" in out, "cli --data_parallel 2 on one card")
+    # --coordinator as a one-process world on this card: init_multihost
+    # over NCCL, the card from LOCAL_RANK, TrainEngine with the mesh
+    mc = os.path.join(d10, "coordinator.nz")
+    for f in (mc, mc + ".final.nz"):
+        if os.path.exists(f):
+            os.remove(f)
+    rcs, outs, coord_s = run_coordinator(["--action", "train", "--model", mc, "--bids", bids,
+                                          "--batch_size", "2", "--epoch", "1", "--device",
+                                          dev.type], 1, dev.type)
+    print(json.dumps({"parallel_cli": {"data_parallel_1_s": cli1_s, "data_parallel_2_rc": rc,
+                                       "data_parallel_2_s": cli2_s, "coordinator_rc": rcs[0],
+                                       "coordinator_s": coord_s,
+                                       "cards": torch.cuda.device_count(), "card": card}}),
+          flush=True)
+    require(rcs == [0] and f"device mesh: 1 x data ({dev.type})" in outs[0]
+            and f"save model to {mc}.final.nz" in outs[0] and os.path.exists(mc + ".final.nz"),
+            "cli --coordinator, one process")
+
+
+def run_coordinator(argv, n: int, dev_type: str) -> tuple[list, list, float]:
+    """``python -m unet_studio_tpu_torch *argv`` as ``n`` processes joined
+    by ``--coordinator``, as on several hosts: ``RANK``, ``WORLD_SIZE`` and
+    ``LOCAL_RANK`` (rank r on card r) set by the caller, as torchrun sets
+    them; every process killed past ``RANKS_TIMEOUT_S``.  (Return codes,
+    outputs, seconds.)"""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "unet_studio_tpu_torch", *argv, "--coordinator",
+         f"127.0.0.1:{port}"], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env={**os.environ, "RANK": str(r), "WORLD_SIZE": str(n),
+                        "LOCAL_RANK": str(r if dev_type == "cuda" else 0)})
+        for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=max(1.0, RANKS_TIMEOUT_S - (time.perf_counter() - t)))[0]
+                for p in procs]
+    except subprocess.TimeoutExpired:
+        raise Failed(f"the --coordinator ranks did not finish within {RANKS_TIMEOUT_S} s") \
+            from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, out in enumerate(outs):
+        print(f"--coordinator rank {r}:\n{out}", end="", flush=True)
+    return [p.returncode for p in procs], outs, time.perf_counter() - t
+
+
+def cards_check(card: str, arch: str, dev_type: str = "cuda", n: int | None = None) -> None:
+    """``python3 chip_smoke.py --cards``, on a host with several cards,
+    with phase 10's ranks over NCCL, one card each: (a) the flagship's f32
+    train step, one item per rank, against the one-process step on the
+    same items (``DP_F32_TOL``, parameters bitwise equal on every rank);
+    the z-sharded forward and step on an ``(n / 2, 2)`` mesh (phase 10's
+    gates; halos stay on the cards); (b) the CLI's ``--data_parallel n``
+    (one process per card, spawned by the CLI) trains 2 epochs on a 32^3
+    phantom, and so does ``--coordinator`` (n CLI processes started here,
+    one per card, as on several hosts; rank 0 alone writes)."""
+    import torch
+
+    from unet_studio_tpu_torch.io.nifti import write_nifti
+    from unet_studio_tpu_torch.models.serialize import load_model
+
+    n = n or torch.cuda.device_count()
+    require(n >= 2, f"--cards needs two cards or more, this host has {n}")
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "cards")
+    os.makedirs(work, exist_ok=True)
+    bids = os.path.join(work, "bids")
+    os.makedirs(bids, exist_ok=True)
+    k = 32
+    zz, yy, xx = np.mgrid[0:k, 0:k, 0:k]
+    r = np.sqrt((xx - k / 2) ** 2 + (yy - k / 2) ** 2 + (zz - k / 2) ** 2)
+    label = (r < k / 3).astype(np.int16) + (r < k / 6).astype(np.int16)
+    image = (np.clip(1.0 - r / (k / 2), 0, 1) * (label > 0)).astype(np.float32)
+    write_nifti(os.path.join(bids, "tpl-A_T1w.nii.gz"), image, is_mni=True)
+    write_nifti(os.path.join(bids, "tpl-A_dseg.nii.gz"), label, is_mni=True)
+    # every rank on its own card (LOCAL_RANK), the backend init_multihost's
+    # (NCCL on cards, gloo on the CPU)
+    io = {"arch": arch, "lr": 1e-2, "spatial_lr": 1e-3, "backend": None, "device": dev_type,
+          "cards": list(range(n)) if dev_type == "cuda" else [0] * n,
+          "n_space": 2, "wrappers": None, "inputs": os.path.join(work, "inputs.pt"),
+          "ref_dp32": os.path.join(work, "dp32.pt"),
+          "ref_spatial": os.path.join(work, "spatial.pt"), "bids": bids, "engine_batch": n,
+          "ref_engine": os.path.join(work, "engine.pt"),
+          "engine_model": os.path.join(work, "engine_rank%d.nz"),
+          "out": os.path.join(work, "rank%d.json")}
+    dev0 = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    t = time.perf_counter()
+    _dp_reference(io, n, dev0)
+    _spatial_reference(io, dev0)
+    torch.save(_engine_epoch(io, dev0), io["ref_engine"])
+    refs_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    res, ranks_s = _spawn_ranks(n, io)
+
+    m = os.path.join(work, "cli.nz")
+    for f in (m, m + ".final.nz"):
+        if os.path.exists(f):
+            os.remove(f)
+    rc, out, cli_s = run_cli(["--action", "train", "--model", m, "--bids", bids, "--batch_size",
+                              str(n), "--epoch", "2", "--device", dev_type, "--data_parallel",
+                              str(n)])
+    errors = load_model(m + ".final.nz", device="cpu").training_errors if rc == 0 else None
+    mc = os.path.join(work, "coordinator.nz")
+    for f in (mc, mc + ".final.nz"):
+        if os.path.exists(f):
+            os.remove(f)
+    rcs, outs, coord_s = run_coordinator(
+        ["--action", "train", "--model", mc, "--bids", bids, "--batch_size", str(n), "--epoch",
+         "2", "--device", dev_type], n, dev_type)
+    coord_errors = (load_model(mc + ".final.nz", device="cpu").training_errors
+                    if rcs == [0] * n else None)
+    summary = {"ranks": n, "backend": "nccl" if dev_type == "cuda" else "gloo",
+               "one_process_ref_s": refs_s, "ranks_wall_s": ranks_s,
+               "dp_f32": [rr["dp_f32"] for rr in res], "engine": [rr["engine"] for rr in res],
+               "spatial": [rr["spatial"] for rr in res],
+               "cli": {"rc": rc, "s": cli_s, "training_errors": errors},
+               "cli_coordinator": {"rcs": rcs, "s": coord_s, "training_errors": coord_errors},
+               "card": card}
+    print(json.dumps({"cards_check": summary}), flush=True)
+    for rr in res:
+        require(rr["dp_f32"]["param_rel_err"] < DP_F32_TOL
+                and rr["dp_f32"]["bitwise_across_ranks"],
+                f"{n} ranks against one process: {rr['dp_f32']}")
+    _check_engine(res)
+    _check_spatial(res)
+    require(rc == 0 and f"device mesh: {n} x data ({dev_type})" in out
+            and len(errors) == 6 and all(np.isfinite(errors)), f"cli --data_parallel {n}")
+    require(rcs == [0] * n and all(f"device mesh: {n} x data ({dev_type})" in o for o in outs)
+            and [f"save model to {mc}.final.nz" in o for o in outs] == [True] + [False] * (n - 1)
+            and len(coord_errors) == 6 and all(np.isfinite(coord_errors)),
+            f"cli --coordinator, {n} processes")
+
+
 def main() -> int:
     import torch
 
@@ -1290,6 +1895,14 @@ def main() -> int:
     card = smi()
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if sys.argv[1:] == ["--cards"]:
+        _cuda.lib()  # built once, before the ranks load it
+        cards_check(card, default_architecture(3))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 1. build ---------------------------------------------------------
     t = time.perf_counter()
@@ -1695,6 +2308,7 @@ def main() -> int:
     phase6_train_step(records, spec_arch, dev, card)
     phase8_cli(records, work, card)
     phase9_qc_atlas(records, work, card)
+    phase10_parallel(records, work, card, spec_arch, dev)
 
     log("all phases passed; wall time in the prefix")
     print(card)

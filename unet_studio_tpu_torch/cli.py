@@ -9,6 +9,12 @@ where it runs (default ``cuda``).
         [--template 0 --atlas atlas.nii.gz --asset_root dir] [--mosaic out.png]
     python -m unet_studio_tpu_torch --action qc --model m.nz --bids bids_dir \\
         [--device cpu|cuda] [--compute_dtype float32]
+
+Training data-parallel: ``--data_parallel n`` on one host starts one
+process per rank (rank i on ``cuda:i``, NCCL; gloo with ``--device
+cpu``).  On several hosts each process is started by the caller with
+``RANK``, ``WORLD_SIZE`` (and ``LOCAL_RANK``, its card) set and
+``--coordinator host:port`` of rank 0.
 """
 
 from __future__ import annotations
@@ -58,12 +64,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_type", type=int, default=0)
     p.add_argument("--asset_root", default=None, help="dir containing atlas/ and unet/")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator address host:port (not ported yet)")
+                   help="multi-host coordinator address host:port (RANK and WORLD_SIZE "
+                   "from the environment)")
     p.add_argument("--session", default=None, help="load a training session JSON")
     p.add_argument("--save_session", default=None, help="write the training session JSON")
     p.add_argument("--mosaic", default=None, help="evaluate: also export a PNG slice mosaic")
     p.add_argument("--data_parallel", type=int, default=None,
-                   help="number of devices on the data axis (not ported yet)")
+                   help="number of devices on the data axis")
     p.add_argument("--compute_dtype", default="bfloat16", choices=["bfloat16", "float32"])
     for item in OPTION_TABLE:
         p.add_argument(f"--{item.id}", type=float, default=None, help=item.hint)
@@ -87,18 +94,34 @@ def resolve_model_path(args) -> str:
     return get_model_path(args.model, zoo)
 
 
-def cmd_train(args) -> int:
-    from .data.bids import get_bids_pairs
-    from .engine.train import TrainEngine, TrainParam
-    from .io.nifti import read_nifti
-    from .models.dsl import default_architecture
-    from .models.serialize import load_model, save_model
-    from .models.unet3d import UNet3d, round_up_size
-    from .ops.augment import AugOptions
+def data_axis(args) -> tuple[int, int]:
+    """(ranks on the data axis, devices there are), as the JAX CLI sizes
+    its mesh: ``--data_parallel`` or every device, at most the batch, then
+    lowered until it divides the batch.  The devices are the process
+    group's ranks where there is one, else the cards (``--device cuda``;
+    a named card is one), or the CPU's cores, where one rank is the
+    default."""
+    import torch
+    import torch.distributed as dist
 
-    if args.data_parallel or args.coordinator:
-        print("error: --data_parallel and --coordinator are not ported yet", file=sys.stderr)
-        return 1
+    dev = torch.device(args.device)
+    if dist.is_initialized():
+        have = default = dist.get_world_size()
+    elif dev.type == "cuda":
+        have = default = torch.cuda.device_count() if dev.index is None else 1
+    else:
+        have, default = os.cpu_count() or 1, 1
+    n = min(args.data_parallel or default, args.batch_size)
+    while args.batch_size % n:
+        n -= 1
+    return n, have
+
+
+def cmd_train(args) -> int:
+    import torch.distributed as dist
+
+    from .data.bids import get_bids_pairs
+
     if args.session:
         from .config.session import load_session
 
@@ -124,6 +147,80 @@ def cmd_train(args) -> int:
             for i, lab in zip(images, labels):
                 f.write(f"{os.path.basename(i)}=>{os.path.basename(lab)}\n")
 
+    n_dev, have = data_axis(args)
+    if n_dev > have:
+        print(f"error: need {n_dev} devices, have {have}", file=sys.stderr)
+        return 1
+    print(f"device mesh: {n_dev} x data ({args.device.split(':')[0]})")
+    if n_dev > 1 and not dist.is_initialized():
+        return spawn_ranks(args, n_dev, images, labels)
+    return train(args, images, labels, n_dev)
+
+
+def spawn_ranks(args, n: int, images, labels) -> int:
+    """One process per rank on this host (rank i on ``cuda:i``, or the
+    CPU with gloo), joined through a free local port; 1 if a rank
+    failed."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        mp.start_processes(_train_rank, args=(n, port, args, images, labels), nprocs=n,
+                           start_method="spawn")
+    except mp.ProcessException as exc:
+        print(f"error: a training rank failed: {exc}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _train_rank(rank: int, n: int, port: int, args, images, labels) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from .utils.device import init_multihost
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")  # rank 0 alone reports
+    if args.device == "cpu":
+        # the parent's threads (OMP_NUM_THREADS where it is set), shared out
+        torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    else:
+        args.device = f"cuda:{rank}"
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n))
+    init_multihost(f"127.0.0.1:{port}", device=args.device)
+    try:
+        rc = train(args, images, labels, n)
+    finally:
+        dist.destroy_process_group()
+    if rc:
+        raise SystemExit(rc)
+
+
+def train(args, images, labels, n_dev: int) -> int:
+    """Train on the matched pairs: alone, or as this rank of the process
+    group's data axis of ``n_dev`` ranks (rank 0 alone writes)."""
+    import torch.distributed as dist
+
+    from .engine.train import TrainEngine, TrainParam
+    from .io.nifti import read_nifti
+    from .models.dsl import default_architecture
+    from .models.serialize import load_model, save_model
+    from .models.unet3d import UNet3d, round_up_size
+    from .ops.augment import AugOptions
+    from .parallel.mesh import make_mesh
+
+    mesh = None
+    if dist.is_initialized():
+        try:
+            mesh = make_mesh(n_dev, device=args.device)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+    writer = mesh is None or mesh.rank == 0
     model_path = resolve_model_path(args)
     if os.path.exists(model_path):
         print(f"loading existing model {model_path}")
@@ -162,7 +259,7 @@ def cmd_train(args) -> int:
         cost_dice=bool(args.cost_dice), cost_mse=bool(args.cost_mse),
         options=AugOptions.from_dict(opts), compute_dtype=args.compute_dtype,
     )
-    if args.save_session:
+    if args.save_session and writer:
         from .config.session import save_session
 
         save_session(args.save_session, images=images, labels=labels, model_path=model_path,
@@ -170,7 +267,7 @@ def cmd_train(args) -> int:
                      epoch=param.epoch, is_label=param.is_label, seed=param.seed,
                      options=opts)
 
-    engine = TrainEngine(model, param, model_path=model_path, device=args.device)
+    engine = TrainEngine(model, param, model_path=model_path, device=args.device, mesh=mesh)
     engine.start()
     if engine.error_msg:
         print(f"error: {engine.error_msg}", file=sys.stderr)
@@ -180,9 +277,10 @@ def cmd_train(args) -> int:
     if engine.error_msg:
         print(f"error: {engine.error_msg}", file=sys.stderr)
         return 1
-    final = model_path + ".final.nz"
-    print(f"save model to {final}")
-    save_model(final, model)
+    if writer:
+        final = model_path + ".final.nz"
+        print(f"save model to {final}")
+        save_model(final, model)
     return 0
 
 
@@ -289,6 +387,12 @@ def cmd_qc(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.coordinator:
+        from .parallel.mesh import rank_device
+        from .utils.device import init_multihost
+
+        init_multihost(args.coordinator, device=args.device)
+        args.device = str(rank_device(args.device))
     # boot-time accelerator probe + self-test (check_cuda, main.cpp:93-102);
     # raises when --device asks for a card that is not there
     from .utils.device import check_cuda

@@ -13,8 +13,16 @@ step, as the JAX package's ``device_step`` does.
 RAM cache, the batch of epoch e + 1 assembled on a reader thread while
 epoch e trains, validation on the held-out templates into
 ``testing_errors``, an autosave of ``.nz`` + ``.opt`` every 100 epochs and
-the resume at epoch ``(len(testing_errors) // 3) % epoch``.  One device:
-data parallelism across cards and several hosts are not ported yet.
+the resume at epoch ``(len(testing_errors) // 3) % epoch``.
+
+Data parallelism (``mesh=``, ``parallel/mesh.py``): one process per rank,
+on one host or several.  Each rank loads and synthesizes only its rows of
+the batch, runs them item by item as above, then one all-reduce (SUM) of
+the summed gradients, metrics and loss over the data axis, the ``psum``
+of the JAX package's ``device_step``; /batch_size, the clip and SGD see
+the reduced gradients, so the parameters stay the same, bit for bit, on
+every rank.  Only rank 0 writes the model, the ``.opt`` file and the
+chart.
 
 Determinism and resume: sample ``seed_id = epoch * batch_size + slot``
 draws its read index from ``np.random.default_rng(seed)`` advanced per
@@ -43,6 +51,7 @@ from ..ops.simulate import (
     simulate_modality_subject,
     simulate_modality_template,
 )
+from ..parallel.mesh import Mesh, all_reduce_sum, local_rows, replicate
 from ..utils.device import resolve_device
 from .optimizer import SGDConfig, init_opt_state, poly_lr, sgd_step
 
@@ -99,11 +108,17 @@ class TrainStep:
     taken as already synthesized.  ``is_template`` (B,) picks the
     simulation per item where there is subject data.  ``timings``, a
     dict, receives the step's synthesis, forward, backward and optimizer
-    seconds (the device is synchronized between them)."""
+    seconds (the device is synchronized between them), and on a data
+    axis the all-reduce's.
+
+    ``mesh`` with a data axis: the batch arguments are this rank's rows
+    (``parallel.mesh.shard_batch``), ``seeds`` their global seed_ids;
+    ``metrics`` and ``loss`` come back summed over every rank's items."""
 
     def __init__(self, model: UNet3d, param: TrainParam, *, any_shift: bool = False,
-                 collapse_k: int = 1, has_subjects: bool = False, device=None):
-        dev = resolve_device(device)
+                 collapse_k: int = 1, has_subjects: bool = False, device=None,
+                 mesh: Mesh | None = None):
+        dev = mesh.device if mesh is not None else resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"the model is on {model.device}, the step on {dev}")
         self.device = model.device
@@ -117,6 +132,7 @@ class TrainStep:
         self.collapse_k = collapse_k
         self.has_subjects = has_subjects
         self.sgd = SGDConfig()
+        self.mesh = mesh
 
     def _sync_time(self, timings) -> float:
         if timings is not None and self.device.type == "cuda":
@@ -145,9 +161,10 @@ class TrainStep:
 
     def grads(self, images, labels, need_shift=None, *, is_template=None, seeds=None,
               plain: bool = False, timings=None):
-        """(grads, metrics, loss): the gradients summed over the items and
-        divided by ``batch_size``, keyed like ``model.params()``.
-        ``plain=True`` runs the kernels' twins, the synthesis's included."""
+        """(grads, metrics, loss): the gradients summed over the items (on
+        a data axis, over every rank's) and divided by ``batch_size``, keyed
+        like ``model.params()``.  ``plain=True`` runs the kernels' twins,
+        the synthesis's included."""
         images = torch.as_tensor(images).to(self.device)
         labels = torch.as_tensor(labels).to(self.device)
         b = images.shape[0]
@@ -185,6 +202,11 @@ class TrainStep:
             loss_sum += loss.detach()
         if timings is not None:
             timings.update(synth_s=syn_s, forward_s=fwd_s, backward_s=bwd_s)
+        if self.mesh is not None and self.mesh.n_data > 1:
+            t0 = self._sync_time(timings)
+            all_reduce_sum([*acc, metrics, loss_sum], self.mesh.data_group)
+            if timings is not None:
+                timings["allreduce_s"] = self._sync_time(timings) - t0
         grads = {k: a / self.param.batch_size for k, a in zip(names, acc)}
         return grads, metrics, loss_sum
 
@@ -201,14 +223,16 @@ class TrainStep:
 
 
 def build_train_step(model: UNet3d, param: TrainParam, *, any_shift: bool = False,
-                     collapse_k: int = 1, has_subjects: bool = False, device=None):
+                     collapse_k: int = 1, has_subjects: bool = False, device=None,
+                     mesh: Mesh | None = None):
     """(train_step, valid_step) for ``model`` on ``device`` (default: the
-    card; the CPU only when asked for).  ``train_step`` is a
-    ``TrainStep``; ``valid_step(images (N, D, H, W, C), labels (N, D, H,
-    W))`` returns the f32 [ce, dice, mse] of the inference forward's
-    level-0 logits (train.py:223-226 of the JAX package)."""
+    card; the CPU only when asked for), or on this rank of ``mesh``.
+    ``train_step`` is a ``TrainStep``; ``valid_step(images (N, D, H, W,
+    C), labels (N, D, H, W))`` returns the f32 [ce, dice, mse] of the
+    inference forward's level-0 logits (train.py:223-226 of the JAX
+    package)."""
     step = TrainStep(model, param, any_shift=any_shift, collapse_k=collapse_k,
-                     has_subjects=has_subjects, device=device)
+                     has_subjects=has_subjects, device=device, mesh=mesh)
 
     @torch.no_grad()
     def valid_step(images, labels):
@@ -222,11 +246,16 @@ def build_train_step(model: UNet3d, param: TrainParam, *, any_shift: bool = Fals
 
 
 class TrainEngine:
-    """start() / run_epoch() / run() / stop() around ``TrainStep``."""
+    """start() / run_epoch() / run() / stop() around ``TrainStep``; with a
+    ``mesh``, this rank's part of a data-parallel run on the mesh's
+    device."""
 
     def __init__(self, model: UNet3d, param: TrainParam, model_path: str = "",
-                 save_model_during_training: bool = True, device=None):
-        self.device = resolve_device(device)
+                 save_model_during_training: bool = True, device=None,
+                 mesh: Mesh | None = None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.writer = mesh is None or mesh.rank == 0  # writes the model, .opt and chart
         self.model = model.to(self.device)
         self.param = param
         self.model_path = model_path
@@ -257,18 +286,28 @@ class TrainEngine:
             self.error_msg = "please specify the training data"
             self.aborted = True
             return
+        nproc = self.mesh.n_data if self.mesh is not None else 1
+        if self.param.batch_size % nproc:
+            # each rank takes batch_size // nproc rows and the step divides
+            # by the whole batch_size (the JAX package's message)
+            self.error_msg = (f"batch_size ({self.param.batch_size}) must be divisible by "
+                              f"the process count ({nproc}) for multi-host training")
+            self.aborted = True
+            return
         self.reading_status = "scanning labels"
         self.dataset = TrainingDataset.scan(self.param.image_file_name,
                                             self.param.label_file_name, self.model.out_count)
         self.opt_state = init_opt_state(self.model.params())
         self._maybe_load_optimizer()
+        if self.mesh is not None:
+            self.opt_state = replicate(self.mesh, self.model.params(), self.opt_state)
         # resume epoch from the error history (train.cpp:1005)
         self.cur_epoch = (len(self.model.testing_errors) // 3) % self.param.epoch
         self._load_test_volumes()
         self._step, self._valid = build_train_step(
             self.model, self.param, any_shift=any(self.dataset.need_shift),
             collapse_k=int(self.dataset.max_template_label + 1),
-            has_subjects=self.dataset.has_subject_data, device=self.device)
+            has_subjects=self.dataset.has_subject_data, device=self.device, mesh=self.mesh)
         self.training_status = "training"
 
     def _maybe_load_optimizer(self) -> None:
@@ -345,6 +384,8 @@ class TrainEngine:
     def _assemble_batch(self, epoch: int):
         ds = self.dataset
         ids = self._epoch_draws(epoch)
+        if self.mesh is not None:
+            ids = ids[local_rows(self.mesh, len(ids))]  # this rank's rows, global seed_ids
         seeds = [(self.param.seed, seed_id) for seed_id, _ in ids]
         # one-template training repeats the same volumes every epoch: keep
         # the batch on the device and only draw new items from it
@@ -413,7 +454,8 @@ class TrainEngine:
             acc /= len(vals)
             self.model.testing_errors.extend(round(float(v), 6) for v in acc)
         # autosave every 100 epochs (train.cpp:780-788)
-        if self.save_model_during_training and self.model_path and self.cur_epoch % 100 == 0:
+        if self.save_model_during_training and self.model_path and self.writer \
+                and self.cur_epoch % 100 == 0:
             self.training_status = "saving model"
             save_model(self.model_path, self.model)
             self._save_optimizer()
@@ -426,6 +468,7 @@ class TrainEngine:
         ``aborted`` instead of escaping (train.cpp:709-721, 791-802)."""
         start = time.time()
         start_epoch = self.cur_epoch
+        chart = chart and self.writer
         if chart:
             print("1" + " " * 50 + "0.1" + " " * 47 + "0.01")
         try:

@@ -132,17 +132,28 @@ def round_up_size(shape_xyz, multiple=32) -> tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 
 
-def _in_stats(x: torch.Tensor, eps: float):
-    """Per-(sample, channel) mean and rsqrt(var+eps) in f32, two-pass
-    variance, over the spatial axes of an (N, C, D, H, W) tensor."""
-    x32 = x.float()
-    mean = x32.mean(dim=(2, 3, 4), keepdim=True)
-    var = (x32 - mean).square().mean(dim=(2, 3, 4), keepdim=True)
+def _moments(x32: torch.Tensor, dims, slab=None):
+    """f32 mean and variance over ``dims`` (kept), in two passes.  Over a
+    volume split into z-slabs (``slab``, ``parallel/spatial.py``) each
+    pass's sums are added over the slabs: Σx gives the mean, then
+    Σ(x - mean)^2 the variance."""
+    if slab is None:
+        mean = x32.mean(dim=dims, keepdim=True)
+        return mean, (x32 - mean).square().mean(dim=dims, keepdim=True)
+    n = math.prod(x32.shape[d] for d in dims) * slab.n
+    mean = slab.psum(x32.sum(dim=dims, keepdim=True)) / n
+    return mean, slab.psum((x32 - mean).square().sum(dim=dims, keepdim=True)) / n
+
+
+def _in_stats(x: torch.Tensor, eps: float, slab=None):
+    """Per-(sample, channel) mean and rsqrt(var+eps) in f32 over the
+    spatial axes of an (N, C, D, H, W) tensor (``_moments``)."""
+    mean, var = _moments(x.float(), (2, 3, 4), slab)
     return mean, torch.rsqrt(var.clamp_min(0.0) + eps)
 
 
-def _instance_norm(x, scale, bias, eps=1e-5):
-    mean, inv = _in_stats(x, eps)
+def _instance_norm(x, scale, bias, eps=1e-5, slab=None):
+    mean, inv = _in_stats(x, eps, slab)
     s = scale.float().view(1, -1, 1, 1, 1)
     a = (inv * s).to(x.dtype)
     b = (bias.float().view(1, -1, 1, 1, 1) - mean * inv * s).to(x.dtype)
@@ -155,15 +166,28 @@ def _batch_norm(x, scale, bias, mean, var, eps=0.0):
     return y.to(x.dtype)
 
 
-def _run_sequential(params, state, mod_name, layers, x):
+def _run_sequential(params, state, mod_name, layers, x, slab=None, train=False):
+    """One level of the plain forward on (N, C, D, H, W).  ``slab``: this
+    rank's z-slab of a volume split over ranks (``parallel/spatial.py``):
+    each conv first takes its halo planes from the neighbouring slabs and
+    pads only H and W, and the norms' statistics are summed over the
+    slabs.  ``train``: the JAX package's gradients for leaky ReLU and
+    batch statistics for ``bnorm``, as its ``forward(train=True)``."""
+    act = activation_train if train else activation
     for i, layer in enumerate(layers):
         if isinstance(x, tuple):
             x = torch.cat(x, dim=1)  # decoder entry: (skip, up)
         w = params.get(f"{mod_name}.{i}.w")
         b = params.get(f"{mod_name}.{i}.b")
         if layer.kind == "conv":
-            x = F.conv3d(x, w.to(x.dtype), b.to(x.dtype), stride=layer.stride,
-                         padding=(layer.ks - 1) // 2)
+            pad = (layer.ks - 1) // 2
+            if slab is not None:
+                # the output planes of this slab read `pad` planes below it
+                # and ks - stride - pad above it (the slab starts on a
+                # multiple of the stride)
+                x = slab.halo(x, pad, max(0, layer.ks - layer.stride - pad))
+                pad = (0, pad, pad)
+            x = F.conv3d(x, w.to(x.dtype), b.to(x.dtype), stride=layer.stride, padding=pad)
         elif layer.kind == "conv_trans":
             x = F.conv_transpose3d(x, w.to(x.dtype), b.to(x.dtype), stride=2)
         elif layer.kind == "max_pool":
@@ -171,26 +195,31 @@ def _run_sequential(params, state, mod_name, layers, x):
         elif layer.kind == "upsample":
             x = x.repeat_interleave(2, 2).repeat_interleave(2, 3).repeat_interleave(2, 4)
         elif layer.kind == "norm":
-            x = _instance_norm(x, w, b)
+            x = _instance_norm(x, w, b, slab=slab)
         elif layer.kind == "bnorm":
-            mean = state.get(f"{mod_name}.{i}.mean", torch.zeros(layer.in_c))
-            var = state.get(f"{mod_name}.{i}.var", torch.ones(layer.in_c))
-            x = _batch_norm(x, w, b, torch.as_tensor(mean, device=x.device),
-                            torch.as_tensor(var, device=x.device))
-        x = activation(x, layer.act)
+            if train:
+                mean, var = (v.flatten() for v in _moments(x.float(), (0, 2, 3, 4), slab))
+            else:
+                mean = torch.as_tensor(state.get(f"{mod_name}.{i}.mean", torch.zeros(layer.in_c)),
+                                       device=x.device)
+                var = torch.as_tensor(state.get(f"{mod_name}.{i}.var", torch.ones(layer.in_c)),
+                                      device=x.device)
+            x = _batch_norm(x, w, b, mean, var)
+        x = act(x, layer.act)
     return x
 
 
 def forward(spec: UNetSpec, params: dict, x: torch.Tensor, *, state: dict | None = None,
-            compute_dtype=torch.float32):
-    """The plain inference forward (the JAX package's XLA route,
-    ``forward(train=False)``).  ``x``: (N, D, H, W, in_count).  Returns
+            compute_dtype=torch.float32, slab=None, train: bool = False):
+    """The plain forward (the JAX package's XLA route, ``forward``),
+    inference unless ``train``.  ``x``: (N, D, H, W, in_count), or this
+    rank's z-slab of it with ``slab`` (``parallel/spatial.py``).  Returns
     the per-level logits, each (N, D_l, H_l, W_l, out_count) float32."""
     state = state or {}
     x = x.to(compute_dtype).permute(0, 4, 1, 2, 3)
 
     def seq(name, layers, x):
-        return _run_sequential(params, state, name, layers, x)
+        return _run_sequential(params, state, name, layers, x, slab, train)
 
     n_enc = len(spec.encoders)
     skips = []

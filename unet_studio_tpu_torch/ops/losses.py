@@ -29,9 +29,13 @@ class ChannelLeading(NamedTuple):
     planes: torch.Tensor
 
 
-def calc_losses(logits, target: torch.Tensor, n_classes: int, collapse_before: int = 0):
+def calc_losses(logits, target: torch.Tensor, n_classes: int, collapse_before: int = 0,
+                psum=None):
     """(ce, dice, mse) f32 scalars.  ``logits``: (N, D, H, W, C) or a
-    ``ChannelLeading``; ``target``: (N, D, H, W) integer."""
+    ``ChannelLeading``; ``target``: (N, D, H, W) integer.  ``psum``, where
+    the volume is split into z-slabs over ranks (``parallel/spatial.py``),
+    adds the slabs' sums (the valid count, the CE and MSE sums, the dice
+    intersections and cardinalities) before they are divided."""
     if collapse_before < 0 or collapse_before >= n_classes:
         raise ValueError("invalid collapse_before")
     target = target.long()
@@ -55,7 +59,6 @@ def calc_losses(logits, target: torch.Tensor, n_classes: int, collapse_before: i
     out_c = len(lg)
     in_range = raw_target < n_classes
     valid = in_range.float()
-    n = torch.clamp_min(valid.sum(), 1.0)
     target = torch.where(in_range, target, 0)
 
     mx = lg[0]
@@ -63,23 +66,34 @@ def calc_losses(logits, target: torch.Tensor, n_classes: int, collapse_before: i
         mx = torch.maximum(mx, lg[c])
     lse = mx + torch.log(sum(torch.exp(lg[c] - mx) for c in range(out_c)))
     logit_t = sum(torch.where(target == c, lg[c], 0.0) for c in range(out_c))
-    ce = ((lse - logit_t) * valid).sum() / n
+    ce_sum = ((lse - logit_t) * valid).sum()
 
     def prob_of(logit_c):
         return torch.clamp(torch.exp(logit_c - lse), 1e-6, 1.0 - 1e-6)
 
     sum_p2 = sum(torch.square(prob_of(lg[c])) for c in range(out_c))
     target_prob = prob_of(logit_t)
-    mse = ((sum_p2 - 2.0 * target_prob + 1.0) * valid).sum() / n
+    mse_sum = ((sum_p2 - 2.0 * target_prob + 1.0) * valid).sum()
 
     # soft dice over classes 1..out_c-1, per sample then averaged
-    eps = 1e-5
-    dice_sum = 0.0
+    inters, cards = [], []
     for c in range(1, out_c):
         p = prob_of(lg[c]) * valid
         m = (target == c).float() * valid
-        inter = torch.sum(p * m, dim=(1, 2, 3))
-        card = torch.sum(p + m, dim=(1, 2, 3))
+        inters.append(torch.sum(p * m, dim=(1, 2, 3)))
+        cards.append(torch.sum(p + m, dim=(1, 2, 3)))
+    n_valid = valid.sum()
+    if psum is not None:
+        sums = psum(torch.cat([torch.stack([n_valid, ce_sum, mse_sum]), *inters, *cards]))
+        n_valid, ce_sum, mse_sum = sums[:3]
+        per_class = sums[3:].split(batch)
+        inters, cards = per_class[:out_c - 1], per_class[out_c - 1:]
+    n = torch.clamp_min(n_valid, 1.0)
+    ce = ce_sum / n
+    mse = mse_sum / n
+    eps = 1e-5
+    dice_sum = 0.0
+    for inter, card in zip(inters, cards):
         dice_sum = dice_sum + torch.sum((2.0 * inter + eps) / (card + eps))
     dice = 1.0 - dice_sum / float(batch * max(1, out_c - 1))
     return ce, dice, mse
@@ -87,13 +101,16 @@ def calc_losses(logits, target: torch.Tensor, n_classes: int, collapse_before: i
 
 def deep_supervision_loss(outputs: list, target: torch.Tensor, n_classes: int,
                           collapse_before: int = 0, cost_ce: bool = True,
-                          cost_dice: bool = True, cost_mse: bool = True):
+                          cost_dice: bool = True, cost_mse: bool = True, psum=None):
     """Weighted multi-scale loss (train.cpp:637-700): level k weighs
     (1/2^k) / sum.  The target of level k > 0 is the level above's,
     nearest-downsampled by 2 (``t[:, ::2, ::2, ::2]``, the index map
     i -> 2i of torch's nearest interpolation).  Returns (total, (ce0,
     dice0, mse0)): the level-0 metrics are the reference's training
-    errors (train.cpp:676-682)."""
+    errors (train.cpp:676-682).  ``psum`` as in ``calc_losses``: on a
+    z-slab, the level-k target is the slab's own ``[::2]`` cut, which
+    lines up with the global one when the slab starts on a multiple of
+    2^k."""
     weight_sum = sum(1.0 / (1 << k) for k in range(len(outputs)))
     total = 0.0
     level0 = None
@@ -101,7 +118,7 @@ def deep_supervision_loss(outputs: list, target: torch.Tensor, n_classes: int,
     for k, logits in enumerate(outputs):
         if k > 0:
             cur_target = cur_target[:, ::2, ::2, ::2]
-        ce, dice, mse = calc_losses(logits, cur_target, n_classes, collapse_before)
+        ce, dice, mse = calc_losses(logits, cur_target, n_classes, collapse_before, psum)
         if k == 0:
             level0 = (ce, dice, mse)
         terms = [t for t, on in ((ce, cost_ce), (dice, cost_dice), (mse, cost_mse)) if on]

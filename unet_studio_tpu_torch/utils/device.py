@@ -1,9 +1,11 @@
-"""Device selection and the boot-time probe (the check_cuda analog,
-cuda.cu:34-74).  The port runs on the card unless the caller asks for the
-CPU; with no card and no such request it raises rather than carry on
-on the CPU."""
+"""Device selection, the boot-time probe (the check_cuda analog,
+cuda.cu:34-74) and multi-host initialization.  The port runs on the card
+unless the caller asks for the CPU; with no card and no such request it
+raises rather than carry on on the CPU."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -37,3 +39,27 @@ def check_cuda(device=None) -> str:
         return ""
     except RuntimeError as e:
         return f"accelerator probe failed: {e}"
+
+
+def init_multihost(coordinator: str | None = None, *, device=None,
+                   backend: str | None = None) -> None:
+    """Join this process to the ranks of a multi-host (or multi-process)
+    run: ``torch.distributed.init_process_group`` at
+    ``tcp://{coordinator}`` (``env://`` without one), with its rank and
+    world size from ``RANK`` and ``WORLD_SIZE`` (torchrun's names).  The
+    backend is NCCL where every rank has a card of its own, gloo for
+    ``device="cpu"``; ranks that share a card pass ``backend="gloo"``.  A
+    no-op when the group is already initialized, as the JAX package's."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    try:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    except KeyError as e:
+        raise RuntimeError(f"init_multihost needs RANK and WORLD_SIZE in the environment "
+                           f"({e.args[0]} is not set)") from None
+    if backend is None:
+        backend = "gloo" if resolve_device(device).type == "cpu" else "nccl"
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}" if coordinator
+                            else "env://", rank=rank, world_size=world)
