@@ -108,11 +108,29 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    ``--data_parallel 2``, which returns 1 with ``error:`` on one card and
    trains over NCCL on two, and ``--coordinator`` as a one-process world
    (``RANK`` 0, ``WORLD_SIZE`` 1, NCCL on the card).  Prints ``parallel`` and ``parallel_cli``.
+11. ``TrainParam.remat`` and the web UI.  (a) Phase 6's step (its items
+   and seeds) with ``remat=True`` against ``remat=False``: f32 under
+   cuDNN's deterministic algorithms, every gradient within
+   ``REMAT_F32_TOL`` of its parameter's largest value; bf16 within phase
+   6's bf16 gates; every forward kernel launched twice with remat, the
+   others as often; step seconds and peak memory of both in bf16 (the
+   peak must fall).  (b) ``ui/server.py`` in this process on
+   127.0.0.1: phase 8's trained flagship loaded, phase 4's three volumes
+   evaluated one request each (labels equal to ``EvaluateEngine.run``'s
+   bits, launches per volume equal to the CLI evaluate's), the five
+   views at every axis, every post-processing button, save, a batch
+   evaluate and save_all; 3 training epochs of 2 items on phase 8's BIDS
+   directory (one rank, bf16; launches equal to 3 of phase 6's steps and
+   3 of phase 4's forwards, the stamps drawn on the host; every bf16 conv
+   on the tensor cores), the augmentation preview (the warp on the card,
+   the same PNG twice) and the port's CLI through the console.  Each
+   background wait has its own limit (``UI_WAIT_S``).  Prints ``remat``,
+   ``ui_evaluate``, ``ui_train`` and ``ui_console``.
 
 TF32 is switched off for cuDNN and matmuls, so every f32 comparison is
 f32 (cuDNN runs f32 convolutions in TF32 by default).
 
-    python3 chip_smoke.py           # phases 1-10, one card
+    python3 chip_smoke.py           # phases 1-11, one card
     python3 chip_smoke.py --cards   # the data axis and the z-sharded path
                                     # over NCCL on every card of the host,
                                     # against one process; the CLI's
@@ -123,7 +141,9 @@ holds one JSON object with every kernel's numbers (``launches``: per
 train step of two items; ``launches_evaluate``: in the CLI evaluate
 run, forward kernels; ``launches_cli_train``: in the CLI train run;
 ``launches_cli_qc``: in the CLI bf16 QC run; ``launches_dp_rank``: per
-rank of phase 10's bf16 step).  The card's peaks come from
+rank of phase 10's bf16 step; ``launches_remat_step``: phase 11's bf16
+remat step; ``launches_ui_eval``: one UI evaluate of one volume;
+``launches_ui_train``: the UI's 3 training epochs).  The card's peaks come from
 ``unet_studio_tpu_torch/utils/flops.chip_peaks``; a card it does not know
 fails the run.
 K2's sum and sqdiff modes have no caller on any path, as in the JAX
@@ -134,6 +154,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1860,6 +1881,341 @@ def cards_check(card: str, arch: str, dev_type: str = "cuda", n: int | None = No
             f"cli --coordinator, {n} processes")
 
 
+# the forward kernels: the ones an evaluate launches, and the ones a
+# checkpointed level reruns in the backward
+FORWARD_KERNELS = ("conv3x3x3_s1", "conv3x3x3_entry", "conv3x3x3_dual", "conv3x3x3_s2",
+                   "conv_trans2x", "channel_sum_sq")
+# phase 11: the remat step's f32 gradients against the step without it,
+# each parameter's error over its largest value (the same kernels in the
+# same fixed order, so 0 is expected)
+REMAT_F32_TOL = 1e-6
+# phase 11: seconds the UI's background work (3 training epochs, a
+# console command) may take before the run fails
+UI_WAIT_S = 300
+
+
+def _reset_counts(records) -> None:
+    for _, w in records.values():
+        w.launches = 0
+        w.tc_launches = 0
+
+
+def phase11_remat(records, arch: str, dev, card: str) -> None:
+    """``TrainParam(remat=True)`` against ``remat=False`` on phase 6's
+    items and seeds at full width: f32 (cuDNN deterministic) gradients
+    within ``REMAT_F32_TOL``, bf16 within phase 6's bf16 gates; each
+    kernel's launches (every forward kernel twice with remat); step
+    seconds and peak memory of both in bf16."""
+    import torch
+
+    from unet_studio_tpu_torch.engine.optimizer import init_opt_state
+    from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step
+    from unet_studio_tpu_torch.models import unet3d as U
+    from unet_studio_tpu_torch.ops.augment import AugOptions
+
+    log("phase 11: the remat step")
+    model = U.UNet3d.create(1, 3, arch, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    images, labels = phantom_batch(model.dim_dhw, 2, gen, dev)
+    images, labels = images.clamp_min(0.0), labels.to(torch.uint8)
+    opt = AugOptions()
+    seeds = stamp_seeds(opt, 7, 2)
+
+    def steps(dtype):
+        return [build_train_step(model, TrainParam(batch_size=2, compute_dtype=dtype,
+                                                   options=opt, remat=r), device=dev)[0]
+                for r in (False, True)]
+
+    out = {"card": card, "item_seeds": seeds}
+    torch.backends.cudnn.deterministic = True
+    for dtype in ("float32", "bfloat16"):
+        res = []
+        for step in steps(dtype):
+            _reset_counts(records)
+            g, _, loss = step.grads(images, labels, seeds=seeds)
+            res.append((g, float(loss), {k: w.launches for k, (_, w) in records.items()}))
+        (g0, l0, n0), (g1, l1, n1) = res
+        l2, worst, name = grad_errs(g1, g0)
+        out[dtype] = {"grad_l2": l2, "grad_worst": worst, "worst_tensor": name,
+                      "loss_rel": abs(l1 - l0) / abs(l0), "loss": l0, "loss_remat": l1,
+                      "launches": n0, "launches_remat": n1}
+        bad = [k for k in n0 if n1[k] != (2 * n0[k] if k in FORWARD_KERNELS else n0[k])]
+        require(not bad and all(n0[k] > 0 for k in FORWARD_KERNELS),
+                f"remat {dtype}: launches against the step without remat: {bad}")
+        del g0, g1, res
+    for k, (rec, _) in records.items():
+        rec["launches_remat_step"] = out["bfloat16"]["launches_remat"][k]
+    torch.backends.cudnn.deterministic = False
+
+    # time and peak memory, bf16, no-remat and remat twice each
+    s0, s1 = steps("bfloat16")
+    opt_state = init_opt_state(model.params())
+    timing = {"step_s": [], "step_s_remat": [], "peak_gib": [], "peak_gib_remat": []}
+    for step, tag in ((s0, ""), (s1, "_remat"), (s0, ""), (s1, "_remat")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        opt_state, _, _ = step(opt_state, images, labels, None, 1e-2, seeds=seeds)
+        torch.cuda.synchronize()
+        timing["step_s" + tag].append(time.perf_counter() - t)
+        timing["peak_gib" + tag].append(torch.cuda.max_memory_allocated() / 2**30)
+    out["bf16_timing"] = timing
+    print(json.dumps({"remat": out}), flush=True)
+    f32, b16 = out["float32"], out["bfloat16"]
+    require(f32["grad_worst"] < REMAT_F32_TOL and f32["loss_rel"] < REMAT_F32_TOL,
+            f"f32 remat step against the step without: {f32['grad_worst']}, {f32['loss_rel']}")
+    require(b16["grad_l2"] < STEP_BF16_GRAD_TOL and b16["loss_rel"] < STEP_BF16_LOSS_TOL,
+            f"bf16 remat step against the step without: {b16['grad_l2']}, {b16['loss_rel']}")
+    require(max(timing["peak_gib_remat"]) < min(timing["peak_gib"]),
+            f"remat did not lower the step's peak memory: {timing}")
+    del model, images, labels, s0, s1, opt_state
+    torch.cuda.empty_cache()
+
+
+class _UI:
+    """The port's UI server in this process on 127.0.0.1 (a free port):
+    ``get``/``post`` return the body of a 200 reply (JSON decoded) and
+    fail the run on any other status."""
+
+    def __init__(self, state):
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        from unet_studio_tpu_torch.ui.server import make_handler
+
+        self.state = state
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def _call(self, path, body=None):
+        import urllib.error
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(self.url + path, data=data,
+                                     method="GET" if body is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=UI_WAIT_S) as r:
+                return r.read()
+        except urllib.error.HTTPError as e:
+            raise Failed(f"UI {path}: HTTP {e.code} {e.read()[:300]!r}") from None
+
+    def get(self, path, raw=False):
+        b = self._call(path)
+        return b if raw else json.loads(b)
+
+    def post(self, path, body):
+        return json.loads(self._call(path, body))
+
+    def close(self):
+        """Stop training and wait for its thread, whose redirection of
+        sys.stdout and sys.stderr into the UI's log ends with it."""
+        if self.state.train_engine is not None:
+            self.state.train_engine.stop()
+            self.state.train_thread.join(timeout=UI_WAIT_S)
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def _png_hw(png: bytes) -> tuple:
+    import struct
+
+    require(png[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    w, h = struct.unpack(">II", png[16:24])
+    return h, w
+
+
+def _stamps(seed: int, seed_ids, options) -> int:
+    """The rubber stamps of items ``(seed, seed_id)``: one linear warp
+    each, drawn on the host as the train step draws them."""
+    from unet_studio_tpu_torch.engine.train import item_rng
+    from unet_studio_tpu_torch.ops.augment import draw_augmentation
+    from unet_studio_tpu_torch.ops.simulate import draw_simulation
+
+    n = 0
+    for sid in seed_ids:
+        rng = item_rng(seed, sid)
+        draw_simulation(rng, 3)
+        d = draw_augmentation(options, (8, 8, 8), rng)
+        n += len(d.stamps) if d.stamp and not d.zero_background else 0
+    return n
+
+
+def phase11_ui(records, work: str, card: str, dev) -> None:
+    """The web UI on the card (``ui/server.py``, in this process): model
+    load and evaluate of phase 4's three volumes with phase 8's trained
+    flagship, labels equal to ``EvaluateEngine.run``'s, launches per
+    volume equal to the CLI evaluate's, the five views, every
+    post-processing button, save and save_all; then 3 training epochs of
+    2 items on phase 8's BIDS directory (one rank, bf16), its launches
+    against phase 6's step and phase 4's forward, the augmentation
+    preview, and a console command."""
+    import torch
+
+    from unet_studio_tpu_torch.config.options import POSTPROC_TABLE
+    from unet_studio_tpu_torch.engine.evaluate import EvaluateEngine
+    from unet_studio_tpu_torch.io.nifti import read_nifti
+    from unet_studio_tpu_torch.models.serialize import load_model
+    from unet_studio_tpu_torch.ops import conv as K
+    from unet_studio_tpu_torch.ops.augment import AugOptions
+    from unet_studio_tpu_torch.ui.server import AppState
+
+    log("phase 11: the web UI")
+    d11 = os.path.join(work, "phase11")
+    os.makedirs(d11, exist_ok=True)
+    os.environ["UNET_TPU_SETTINGS"] = os.path.join(d11, "settings.json")
+    if os.path.exists(os.environ["UNET_TPU_SETTINGS"]):
+        os.remove(os.environ["UNET_TPU_SETTINGS"])
+    trained = os.path.join(work, "trained.nz.final.nz.final.nz")
+    paths = [os.path.join(work, f"vol{i}.nii.gz") for i in range(3)]
+    ui = _UI(AppState(device=dev.type))
+    try:
+        # (a) evaluate, one volume per request, against the engine
+        j = ui.post("/api/model/load", {"path": trained})
+        require(j["out_count"] == 3 and j["dim"] == [192, 224, 192], f"UI model load: {j}")
+        engine = EvaluateEngine(load_model(trained, device=dev), compute_dtype=torch.bfloat16,
+                                device=dev)
+        torch.backends.cudnn.deterministic = True
+        ev = {"ui_eval_s": [], "engine_s": [], "labels_equal": [], "launches": []}
+        labels = []
+        for p in paths:
+            _reset_counts(records)
+            t = time.perf_counter()
+            j = ui.post("/api/eval/run", {"source": p})
+            ev["ui_eval_s"].append(time.perf_counter() - t)
+            launches = {k: w.launches for k, (_, w) in records.items()}
+            tc_ok = all(w.tc_launches == w.launches for _, w in records.values()
+                        if w in K.TC_WRAPPERS)
+            t = time.perf_counter()
+            ref = next(iter(engine.run([p])))
+            torch.cuda.synchronize()
+            ev["engine_s"].append(time.perf_counter() - t)
+            require(j["dims"] == [182, 218, 182] and not ref.error_msg, f"UI evaluate {p}: {j}")
+            ev["labels_equal"].append(bool(np.array_equal(ui.state.case.label, ref.label)))
+            ev["launches"].append(launches)
+            labels.append(ref.label)
+            bad = [k for k, (rec, _) in records.items()
+                   if launches[k] != rec.get("launches_evaluate", 0)]
+            require(not bad and tc_ok, f"UI evaluate launches against the CLI evaluate's: {bad}")
+        torch.backends.cudnn.deterministic = False
+        for k, (rec, _) in records.items():
+            rec["launches_ui_eval"] = ev["launches"][0][k]
+        require(all(ev["labels_equal"]), f"UI labels against EvaluateEngine.run: {ev}")
+        # the five views, every post-processing button, save, save_all
+        mid = [182 // 2, 218 // 2, 182 // 2]
+        views = {}
+        for view in ui.state.EVAL_VIEWS:
+            hw = [_png_hw(ui.get(f"/api/eval/slice?axis={a}&index={mid[a]}&view={view}",
+                                 raw=True)) for a in range(3)]
+            views[view] = hw
+            require(hw == [(218, 182), (182, 182), (182, 218)], f"view {view}: {hw}")
+        t = time.perf_counter()
+        buttons = [o.id for o in POSTPROC_TABLE if o.kind == "button"]
+        for cmd in buttons:
+            r = ui.post("/api/eval/action", {"cmd": cmd, "param1": 0.5, "param2": 1.0})
+            require(r == {"ok": True, "cmd": cmd}, f"post-processing {cmd}: {r}")
+        ev["postproc_s"] = time.perf_counter() - t
+        out = os.path.join(d11, "vol2_ui_result.nii.gz")
+        require(ui.post("/api/eval/save", {"path": out})["saved"] == out
+                and read_nifti(out).data.shape == (182, 218, 182), "UI save")
+        j = ui.post("/api/eval/run", {"sources": paths})
+        require(len(j["cases"]) == 3 and not any(c["error"] for c in j["cases"])
+                and all(np.array_equal(c.label, lab) for c, lab in zip(ui.state.cases, labels)),
+                "UI batch evaluate")
+        t = time.perf_counter()
+        j = ui.post("/api/eval/save_all", {"path": os.path.join(d11, "vol0_ui.nii.gz")})
+        ev["save_all_s"] = time.perf_counter() - t
+        require(j["errors"] == [] and sorted(j["saved"]) == [
+            os.path.join(d11, f"vol{i}_ui.nii.gz") for i in range(3)]
+            and all(os.path.exists(p) for p in j["saved"]), f"UI save_all: {j}")
+        ev["views_hw"] = views
+        ev["card"] = card
+        del engine
+        ev.pop("launches")
+        print(json.dumps({"ui_evaluate": ev}), flush=True)
+
+        # (b) 3 epochs of 2 items on phase 8's template, one rank
+        model = os.path.join(d11, "ui_train.nz")
+        if os.path.exists(model):
+            os.remove(model)
+        # phase 8's template pair alone: its BIDS directory now also holds
+        # evaluate results, which would match as more pairs
+        bids = os.path.join(d11, "bids")
+        os.makedirs(bids, exist_ok=True)
+        for name in ("tpl-A_T1w.nii.gz", "tpl-A_dseg.nii.gz"):
+            shutil.copy(os.path.join(work, "bids", name), os.path.join(bids, name))
+        _reset_counts(records)
+        t = time.perf_counter()
+        j = ui.post("/api/train/start", {"bids": bids, "model": model, "batch_size": 2,
+                                         "epoch": 3})
+        require(j == {"pairs": 1, "model": model, "devices": 1}, f"UI train start: {j}")
+        deadline = time.monotonic() + UI_WAIT_S
+        while time.monotonic() < deadline:
+            s = ui.get("/api/train/status")
+            if s["error_msg"] or s["epoch"] >= s["total_epochs"]:
+                break
+            time.sleep(0.2)
+        ui.state.train_thread.join(timeout=max(0.0, deadline - time.monotonic()))
+        train_s = time.perf_counter() - t
+        require(not ui.state.train_thread.is_alive(), f"UI training past {UI_WAIT_S} s")
+        s = ui.get("/api/train/status")
+        errs = s["training_errors"]
+        require(s["error_msg"] == "" and s["epoch"] == 3 and len(errs) == 9
+                and bool(np.isfinite(errs).all()), f"UI training: {s}")
+        launches = {k: w.launches for k, (_, w) in records.items()}
+        tc_ok = all(w.tc_launches == w.launches for _, w in records.values()
+                    if w in K.TC_WRAPPERS)
+        # 3 steps of phase 6's column and 3 validation forwards (one
+        # template, phase 4's forward); the stamps are this run's items'
+        stamps = _stamps(0, range(6), AugOptions())
+        expect = {k: (stamps if k in ITEM_DEPENDENT else
+                      3 * rec["launches"] + 3 * rec.get("launches_evaluate", 0))
+                  for k, (rec, _) in records.items()}
+        for k, (rec, _) in records.items():
+            rec["launches_ui_train"] = launches[k]
+        bad = [k for k in expect if launches[k] != expect[k]]
+        tr = {"train_3_epochs_s": train_s, "training_errors": errs,
+              "testing_errors": s["testing_errors"], "stamps": stamps, "launches": launches,
+              "expected": expect, "bf16_tensor_cores": tc_ok, "card": card}
+        # the augmentation preview on the card, twice for one seed
+        _reset_counts(records)
+        t = time.perf_counter()
+        a = ui.get("/api/aug/preview?seed=5&axis=0", raw=True)
+        tr["aug_preview_s"] = time.perf_counter() - t
+        b = ui.get("/api/aug/preview?seed=5&axis=0", raw=True)
+        tr["aug_preview_launches"] = {k: w.launches for k, (_, w) in records.items()
+                                      if w.launches}
+        tr["aug_preview_hw"] = _png_hw(a)
+        print(json.dumps({"ui_train": tr}), flush=True)
+        require(not bad and tc_ok, f"UI train launches against 3 steps + 3 forwards: {bad}")
+        require(a == b and _png_hw(a) == (224, 192)
+                and tr["aug_preview_launches"].get("warp_image_label") == 2,
+                f"UI aug preview: {tr['aug_preview_launches']}")
+
+        # (c) the console runs the port's CLI on the card
+        cmd = (f"unet-studio-tpu-torch --action evaluate --model {trained} "
+               f"--source {paths[0]} --device {dev.type}")
+        t = time.perf_counter()
+        ui.post("/api/console/run", {"cmd": cmd})
+        deadline = time.monotonic() + UI_WAIT_S
+        lines = []
+        while time.monotonic() < deadline:
+            lines = ui.get("/api/console?n=2000")["lines"]
+            if any(ln.startswith("[command exited with code") for ln in lines):
+                break
+            time.sleep(0.2)
+        console = {"console_s": time.perf_counter() - t,
+                   "tail": [ln for ln in lines if ln.startswith("[command")]}
+        print(json.dumps({"ui_console": console}), flush=True)
+        require("[command exited with code 0]" in lines, f"UI console: {lines[-5:]}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        ui.close()
+        del os.environ["UNET_TPU_SETTINGS"]
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2309,6 +2665,8 @@ def main() -> int:
     phase8_cli(records, work, card)
     phase9_qc_atlas(records, work, card)
     phase10_parallel(records, work, card, spec_arch, dev)
+    phase11_remat(records, spec_arch, dev, card)
+    phase11_ui(records, work, card, dev)
 
     log("all phases passed; wall time in the prefix")
     print(card)

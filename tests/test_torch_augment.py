@@ -31,6 +31,7 @@ from unet_studio_tpu.ops import simulate as JS
 from unet_studio_tpu_torch.ops import augment as TA
 from unet_studio_tpu_torch.ops import perlin as TP
 from unet_studio_tpu_torch.ops import simulate as TS
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True,
                 "xla_cpu_use_fusion_emitters": False}

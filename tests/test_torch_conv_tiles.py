@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from unet_studio_tpu_torch.ops import conv as K
 from unet_studio_tpu_torch.ops import tc_layout as L
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5  # f32 GEMM vs f32 conv: the order of the sums differs
 

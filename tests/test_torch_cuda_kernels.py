@@ -5,7 +5,8 @@ whole-tile shapes); K2's modes, the weight gradients, the convs' stats and
 K8's dx are bitwise repeatable, K2 on two streams at once too, and need no
 zeroed output; the warp takes uint8, int and float labels alike; QC's
 device counts equal a host recount, and the atlas resample's bits the
-CPU's.  These tests need an NVIDIA GPU and skip without one; run them
+CPU's; the training forward with remat gives the gradients without it,
+each forward kernel launched once more.  These tests need an NVIDIA GPU and skip without one; run them
 there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -773,3 +774,48 @@ def test_atlas_resample_card_vs_cpu(dev, tmp_path):
         out.append(parc)
     np.testing.assert_array_equal(out[0].atlas, out[1].atlas)
     assert out[0].atlas_region_count == 6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_train_forward(dev, dtype):
+    """``forward_train(remat=True)`` through the kernels: the gradients of
+    the run without remat (the kernels sum in a fixed order), and every
+    forward kernel launched twice per item, once more in the backward."""
+    from unet_studio_tpu_torch.models.unet3d import UNet3d, forward_train
+    from unet_studio_tpu_torch.ops.losses import deep_supervision_loss
+
+    arch = "\n".join([
+        "conv16,ks3,stride1+norm,leaky_relu+conv16,ks3,stride1+norm,leaky_relu",
+        "conv32,ks3,stride2+norm,leaky_relu+conv32,ks3,stride1+norm,leaky_relu",
+        "conv64,ks3,stride2+norm,leaky_relu+conv64,ks3,stride1+norm,leaky_relu"
+        "+conv_trans32,ks2,stride2",
+        "conv32,ks3,stride1+norm,leaky_relu+conv32,ks3,stride1+norm,leaky_relu"
+        "+conv3,ks1,stride1+conv_trans16,ks2,stride2",
+        "conv16,ks3,stride1+norm,leaky_relu+conv16,ks3,stride1+norm,leaky_relu"
+        "+conv3,ks1,stride1",
+    ])
+    rng = np.random.default_rng(0)
+    model = UNet3d.create(1, 3, arch, seed=0, device=dev)
+    x = torch.from_numpy(rng.random((1, 16, 24, 32, 1), np.float32)).to(dev)
+    lab = torch.from_numpy(rng.integers(0, 3, (1, 16, 24, 32))).to(dev)
+    forward = (K.conv3x3x3_s1, K.conv3x3x3_entry, K.conv3x3x3_dual, K.conv3x3x3_s2,
+               K.conv_trans2x, R.channel_sum_sq)
+    wrappers = (*K.WRAPPERS, *R.WRAPPERS, *W.WRAPPERS)
+    out = {}
+    for remat in (False, True):
+        for w in wrappers:
+            w.launches = 0
+        leaves = {k: v.detach().requires_grad_() for k, v in model.params().items()}
+        outs = forward_train(model.spec, leaves, x, compute_dtype=getattr(torch, dtype),
+                             remat=remat)
+        loss, _ = deep_supervision_loss(outs, lab, 3)
+        g = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
+        out[remat] = (loss.detach(), dict(zip(leaves, g)), {w: w.launches for w in wrappers})
+    assert torch.equal(out[True][0], out[False][0])
+    for k, ref in out[False][1].items():
+        err = float((out[True][1][k] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        assert err < 1e-6, (k, err)
+    for w in wrappers:
+        n = out[False][2][w]
+        assert out[True][2][w] == (2 * n if w in forward else n), w.__name__
+    assert all(out[False][2][w] > 0 for w in forward)

@@ -18,6 +18,7 @@ from unet_studio_tpu_torch import cli
 from unet_studio_tpu_torch.engine.evaluate import EvaluateEngine
 from unet_studio_tpu_torch.io.nifti import read_nifti, write_nifti
 from unet_studio_tpu_torch.models import serialize as TS
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 

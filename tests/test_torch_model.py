@@ -20,6 +20,7 @@ from unet_studio_tpu.models import unet3d as J
 from unet_studio_tpu_torch.models import unet3d as T
 from unet_studio_tpu_torch.models.dsl import default_architecture, parse_architecture
 from unet_studio_tpu_torch.models.serialize import from_jax_params
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 ARCH_PACKED = "\n".join(
     [

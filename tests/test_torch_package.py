@@ -119,3 +119,19 @@ def test_wrappers_take_no_other_device():
         with pytest.raises(ValueError, match="expected cuda or cpu"):
             fn(*args)
     assert all(fn.launches == 0 for fn in (*K.WRAPPERS, *W.WRAPPERS))
+
+
+def test_ui_needs_a_card_or_cpu_request(monkeypatch):
+    """The UI server is an entry point like the CLI: ``AppState`` and
+    ``python -m unet_studio_tpu_torch.ui`` take the card by default and
+    raise without one; the rule above reads ``ui/server.py`` too."""
+    from unet_studio_tpu_torch.ui import server
+
+    assert os.path.join(ROOT, "unet_studio_tpu_torch", "ui", "server.py") in _port_files()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("UNET_TPU_SETTINGS", os.path.join(ROOT, "build", "no_such_settings.json"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.AppState()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.main(["--port", "0"])
+    assert server.AppState(device="cpu").device == torch.device("cpu")

@@ -251,6 +251,21 @@ def test_data_parallel_step_matches_one_process(ranks, inputs, case):
     assert float(ref["metrics"][3]) == 2.0  # both items recorded, once each
 
 
+@pytest.mark.parametrize("case", ["spatial_step", "dp_synthesized"])
+def test_remat_steps_match_on_two_ranks(ranks, case):
+    # TrainParam.remat / remat=True: the backward reruns each level's
+    # forward, the z-sharded one with its halo exchanges and slab sums,
+    # on both ranks in the same order; the update is the one without
+    for res in ranks:
+        got, ref = res[case + "_remat"], res[case]
+        _rel_close(got["params"], ref["params"], 1e-6)
+        if "momentum" in ref:
+            _grads_close(got["momentum"], ref["momentum"], 1e-6)
+        for k in set(ref) - {"params", "momentum"}:
+            assert torch.equal(got[k], ref[k]), k
+    _bitwise_equal(ranks[0][case + "_remat"]["params"], ranks[1][case + "_remat"]["params"])
+
+
 def test_engine_data_parallel_matches_one_process(ranks, inputs, tmp_path):
     _bitwise_equal(ranks[0]["engine"]["params"], ranks[1]["engine"]["params"])
     ref = W.engine_epoch(inputs, make_mesh(1, 1, device="cpu"), 2,

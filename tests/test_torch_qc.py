@@ -24,6 +24,7 @@ from unet_studio_tpu_torch.data.bids import get_bids_pairs
 from unet_studio_tpu_torch.engine import qc as Q
 from unet_studio_tpu_torch.models.serialize import load_model
 from unet_studio_tpu_torch.utils.mosaic import make_mosaic
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 GOLDEN_PP = os.path.join(os.path.dirname(__file__), "fixtures", "golden_pp")
 

@@ -22,6 +22,7 @@ from unet_studio_tpu_torch.models.dsl import parse_architecture
 from unet_studio_tpu_torch.models.serialize import from_jax_opt_state, load_model, to_jax_opt_state
 from unet_studio_tpu_torch.models.unet3d import UNet3d
 from unet_studio_tpu_torch.ops.augment import AugOptions
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 
 def _arch(out: int) -> str:

@@ -23,6 +23,7 @@ from unet_studio_tpu_torch.engine import optimizer as TO
 from unet_studio_tpu_torch.models.dsl import parse_architecture
 from unet_studio_tpu_torch.models.serialize import from_jax_opt_state
 from unet_studio_tpu_torch.ops import losses as TL
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 # The JAX references run under one jit compiled at XLA's lowest backend
 # optimisation level without the CPU fusion emitters: eager, each of their

@@ -49,6 +49,7 @@ from unet_studio_tpu_torch.engine import train as TT
 from unet_studio_tpu_torch.models.dsl import default_architecture
 from unet_studio_tpu_torch.models.serialize import from_jax_opt_state, from_jax_params
 from unet_studio_tpu_torch.models.unet3d import UNet3d, param_order
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 # XLA's lowest backend optimisation level without the CPU fusion emitters:
 # the flagship's gradient compiles in a quarter of the default's time

@@ -41,6 +41,7 @@ from unet_studio_tpu_torch.engine import train as TE
 from unet_studio_tpu_torch.ops import reduce as R
 from unet_studio_tpu_torch.ops import resample as TR
 from unet_studio_tpu_torch.ops import warp as W
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 # XLA's lowest backend optimisation level without the CPU fusion emitters:

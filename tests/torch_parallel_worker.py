@@ -82,11 +82,11 @@ def spatial_step_f64(inputs: dict, mesh, img, lab) -> dict:
     return snapshot(params)
 
 
-def step_dp(inputs: dict, mesh, seeds) -> dict:
+def step_dp(inputs: dict, mesh, seeds, remat: bool = False) -> dict:
     """One data-parallel f32 TrainStep on this rank's rows of the batch."""
     model = model_with(inputs["params"])
     step = TrainStep(model, TrainParam(batch_size=2, compute_dtype="float32",
-                                       options=AugOptions()), mesh=mesh)
+                                       options=AugOptions(), remat=remat), mesh=mesh)
     images, labels = shard_batch(mesh, torch.from_numpy(inputs["images"]),
                                  torch.from_numpy(inputs["labels"]))
     opt, metrics, loss = step(init_opt_state(model.params()), images, labels, None, 0.01,
@@ -132,11 +132,13 @@ def cases(rank: int, inputs: dict, out_dir: str) -> dict:
     model = model_with(inputs["params"])
     infer = make_spatial_infer(model, space, compute_dtype=torch.float32)
     out["infer"] = infer(model.params(), torch.from_numpy(inputs["x"][:, sl]))
-    step = make_spatial_train_step(model, space)
-    params, _, lvl0 = step(model.params(), init_opt_state(model.params()),
-                           torch.from_numpy(inputs["img"][:, sl]),
-                           torch.from_numpy(inputs["lab"][:, sl]), 1e-3)
-    out["spatial_step"] = {"params": snapshot(params), "lvl0": lvl0}
+    for key, remat in (("spatial_step", False), ("spatial_step_remat", True)):
+        model = model_with(inputs["params"])
+        step = make_spatial_train_step(model, space, remat=remat)
+        params, _, lvl0 = step(model.params(), init_opt_state(model.params()),
+                               torch.from_numpy(inputs["img"][:, sl]),
+                               torch.from_numpy(inputs["lab"][:, sl]), 1e-3)
+        out[key] = {"params": snapshot(params), "lvl0": lvl0}
     out["spatial_step_f64"] = spatial_step_f64(inputs, space,
                                                torch.from_numpy(inputs["img"][:, sl]),
                                                torch.from_numpy(inputs["lab"][:, sl]))
@@ -145,6 +147,7 @@ def cases(rank: int, inputs: dict, out_dir: str) -> dict:
     # synthesizes from their global seed_ids; TrainEngine's epoch
     out["dp_items"] = step_dp(inputs, mesh, None)
     out["dp_synthesized"] = step_dp(inputs, mesh, inputs["seeds"])
+    out["dp_synthesized_remat"] = step_dp(inputs, mesh, inputs["seeds"], remat=True)
     out["engine"] = engine_epoch(inputs, mesh, 2, os.path.join(out_dir, f"model{rank}.nz"))
     out["engine_batch3"] = engine_epoch(inputs, mesh, 3)
     return out

@@ -63,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--atlas", default=None)
     p.add_argument("--output_type", type=int, default=0)
     p.add_argument("--asset_root", default=None, help="dir containing atlas/ and unet/")
-    p.add_argument("--coordinator", default=None,
+    p.add_argument("--coordinator", default=os.environ.get("UNET_TPU_COORDINATOR"),
                    help="multi-host coordinator address host:port (RANK and WORLD_SIZE "
                    "from the environment)")
     p.add_argument("--session", default=None, help="load a training session JSON")
@@ -226,14 +226,14 @@ def train(args, images, labels, n_dev: int) -> int:
         print(f"loading existing model {model_path}")
         try:
             model = load_model(model_path, device=args.device)
-        except (OSError, ValueError) as exc:  # train.cpp:1110-1111
+        except Exception as exc:  # noqa: BLE001  (train.cpp:1110-1111)
             print(f"error: failed to load model from {model_path}: {exc}", file=sys.stderr)
             return 1
     else:
         try:
             lbl = read_nifti(labels[0])
             img = read_nifti(images[0])
-        except (OSError, ValueError) as exc:  # train.cpp:1119-1122
+        except Exception as exc:  # noqa: BLE001  (train.cpp:1119-1122)
             print(f"error: cannot load label/image file: {exc}", file=sys.stderr)
             return 1
         out_count = args.out_count or int(np.max(lbl.data)) + 1

@@ -1,5 +1,6 @@
-"""The augmentation option table (ids, defaults, hints): the source of
-the CLI's option flags, a copy of the JAX package's table, and the parser
+"""The augmentation and post-processing option tables (ids, defaults,
+hints): the source of the CLI's option flags and the UI's option tree, a
+copy of the JAX package's tables, and the parser
 of the reference's option files (reference: options.txt, postproc.txt,
 optiontablewidget.cpp:478-508).
 
@@ -70,6 +71,10 @@ def _int(cat, title, oid, lo, hi, step, default, hint):
     return OptionItem(cat, title, oid, "int", default, lo, hi, step, 0, hint)
 
 
+def _btn(cat, title, oid, hint):
+    return OptionItem(cat, title, oid, "button", 0, hint=hint)
+
+
 # Augmentation options (ids/defaults == reference options.txt:1-39)
 OPTION_TABLE: tuple[OptionItem, ...] = (
     _prob("Reduction", "Cropping", "cropping", 0, "Apply signal cropping"),
@@ -123,6 +128,32 @@ OPTION_TABLE: tuple[OptionItem, ...] = (
     _prob("Background", "Perlin Texture", "perlin_texture", 2, "Add Perlin noise"),
     _flt("Background", "└Magnitude", "perlin_texture_mag", 0, 1, 0.1, 2, 0.5,
          "The magnitude of background images"),
+)
+
+# Post-processing actions (ids/defaults == reference postproc.txt:1-18)
+POSTPROC_TABLE: tuple[OptionItem, ...] = (
+    _btn("Post-processing", "Defragment", "defragment", "zero background region using summed probability"),
+    _flt("Post-processing", "├Threshold", "defragment_threshold", 0, 1, 0.1, 2, 0.5,
+         "threshold for removing the background on summed image"),
+    _int("Post-processing", "└Smoothing", "defragment_smoothing", 1, 5, 1, 1, "number of smoothing applied"),
+    _btn("Post-processing", "Minus", "minus", "minus a value to each volume"),
+    _flt("Post-processing", "└Value", "minus_value", 0, 1, 0.1, 2, 0.5, "value"),
+    _btn("Post-processing", "Defragment Each", "defragment_each", "remove fragments"),
+    _flt("Post-processing", "└Threshold", "defragment_each_threshold", 0, 1, 0.1, 2, 0.25,
+         "threshold for removing fragments"),
+    _btn("Post-processing", "Upper Threshold", "upper_threshold", "apply a upper threshold"),
+    _flt("Post-processing", "└Threshold", "upper_threshold_threshold", 0, 5, 0.1, 2, 1.0, "threshold"),
+    _btn("Post-processing", "Lower Threshold", "lower_threshold", "apply a lower threshold"),
+    _flt("Post-processing", "└Threshold", "lower_threshold_threshold", 0, 5, 0.1, 2, 0.0, "threshold"),
+    _btn("Post-processing", "Normalize Each", "normalize_each", "normalize each volume"),
+    _btn("Post-processing", "Gaussian Smoothing", "gaussian_smoothing", "apply Gaussian smoothing"),
+    _btn("Post-processing", "Anisotropic Smoothing", "anisotropic_smoothing", "apply anisotropic smoothing"),
+    _btn("Post-processing", "Soft Max", "soft_max", "calculate soft max"),
+    _flt("Post-processing", "└Probability threshold", "soft_max_prob", 0, 1, 0.1, 2, 0.5,
+         "probability threshold"),
+    _btn("Post-processing", "Binarize", "binarize", "binarize the values"),
+    _flt("Post-processing", "└Threshold", "binarize_threshold", 0, 1, 0.1, 2, 0.5,
+         "threshold for threshold value to 0 and 1"),
 )
 
 

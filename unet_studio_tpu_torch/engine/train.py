@@ -40,6 +40,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..data.bids import TrainingDataset, load_pair_on_model_grid, shift_subject_label
 from ..models.serialize import from_jax_opt_state, save_model, to_jax_opt_state
@@ -72,6 +73,9 @@ class TrainParam:
     cost_mse: bool = True
     options: AugOptions = field(default_factory=AugOptions)
     compute_dtype: str = "bfloat16"  # bf16 compute, f32 master weights
+    # checkpoint each level of the training forward and the loss: the
+    # backward reruns their forwards, for less activation memory
+    remat: bool = False
 
 
 def _labels_u8(labels: np.ndarray) -> np.ndarray:
@@ -134,6 +138,14 @@ class TrainStep:
         self.sgd = SGDConfig()
         self.mesh = mesh
 
+    def _loss(self, *args):
+        """``deep_supervision_loss``, checkpointed under ``remat`` as the
+        JAX package checkpoints it."""
+        if self.param.remat:
+            return torch.utils.checkpoint.checkpoint(deep_supervision_loss, *args,
+                                                     use_reentrant=False)
+        return deep_supervision_loss(*args)
+
     def _sync_time(self, timings) -> float:
         if timings is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -188,9 +200,9 @@ class TrainStep:
                                            plain=plain)
             t1 = self._sync_time(timings)
             outs = forward_train(self.spec, leaf_dict, img[None], compute_dtype=self.cdt,
-                                 plain=plain)
-            loss, lvl0 = deep_supervision_loss(outs, lab[None].long(), self.n_classes,
-                                               collapse, *self.cost)
+                                 plain=plain, remat=self.param.remat)
+            loss, lvl0 = self._loss(outs, lab[None].long(), self.n_classes, collapse,
+                                    *self.cost)
             t2 = self._sync_time(timings)
             g = torch.autograd.grad(loss, leaves, materialize_grads=True)
             del outs

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops import conv as K
 from ..ops.conv import KERNEL_CHANNELS, activation, activation_train, dhwc, ncdhw
@@ -209,17 +210,33 @@ def _run_sequential(params, state, mod_name, layers, x, slab=None, train=False):
     return x
 
 
+def _level(run, x, remat: bool):
+    """``run(x)`` for one level's input ``x``, a tensor or the decoder's
+    (skip, up) pair.  ``remat`` checkpoints it (non-reentrant
+    ``torch.utils.checkpoint``, the pair as two tensor arguments): only
+    its inputs stay alive, and the backward reruns it, as
+    ``jax.checkpoint`` does per level in the JAX package."""
+    if not remat:
+        return run(x)
+    xs = x if isinstance(x, tuple) else (x,)
+    return torch.utils.checkpoint.checkpoint(lambda *a: run(a if len(a) > 1 else a[0]), *xs,
+                                             use_reentrant=False)
+
+
 def forward(spec: UNetSpec, params: dict, x: torch.Tensor, *, state: dict | None = None,
-            compute_dtype=torch.float32, slab=None, train: bool = False):
+            compute_dtype=torch.float32, slab=None, train: bool = False,
+            remat: bool = False):
     """The plain forward (the JAX package's XLA route, ``forward``),
     inference unless ``train``.  ``x``: (N, D, H, W, in_count), or this
     rank's z-slab of it with ``slab`` (``parallel/spatial.py``).  Returns
-    the per-level logits, each (N, D_l, H_l, W_l, out_count) float32."""
+    the per-level logits, each (N, D_l, H_l, W_l, out_count) float32.
+    ``remat=True`` checkpoints each level (``_level``)."""
     state = state or {}
     x = x.to(compute_dtype).permute(0, 4, 1, 2, 3)
 
     def seq(name, layers, x):
-        return _run_sequential(params, state, name, layers, x, slab, train)
+        return _level(lambda v: _run_sequential(params, state, name, layers, v, slab, train),
+                      x, remat)
 
     n_enc = len(spec.encoders)
     skips = []
@@ -529,27 +546,32 @@ def _run_level_train(ops: _TrainOps, params, mod_name, layers, x):
 
 
 def forward_train(spec: UNetSpec, params: dict, x: torch.Tensor, *,
-                  compute_dtype=torch.bfloat16, plain: bool = False):
+                  compute_dtype=torch.bfloat16, plain: bool = False, remat: bool = False):
     """The training forward of one item.  ``x``: (1, D, H, W, in_count).
     Returns the per-level logits in f32: level 0 as ``ChannelLeading``
     planes (C, 1, D, H, W) when its head is one ks1 conv (the loss's
     layout, written by the head's matmul directly), the other levels
     (1, D_l, H_l, W_l, out_count).  Differentiable in ``params``;
-    ``plain=True`` runs the kernels' twins under plain autograd."""
+    ``plain=True`` runs the kernels' twins under plain autograd.
+    ``remat=True`` checkpoints each level (``_level``); the level-0 ks1
+    head stays outside, as the JAX package keeps its packed head."""
     if x.shape[0] != 1:
         raise ValueError(f"forward_train takes one item, got a batch of {x.shape[0]}")
     ops = _TrainOps(plain)
+
+    def level_fn(mod_name, layers, x):
+        return _level(lambda v: _run_level_train(ops, params, mod_name, layers, v), x, remat)
+
     t = x[0].to(compute_dtype).contiguous()
     n_enc = len(spec.encoders)
     skips = []
     for level in range(n_enc):
-        t = _run_level_train(ops, params, f"encode{level}", spec.encoders[level], t)
+        t = level_fn(f"encode{level}", spec.encoders[level], t)
         if level < n_enc - 1:
             skips.append(t)
     results: list = [None] * len(spec.decoders)
     for level in range(n_enc - 2, -1, -1):
-        t = _run_level_train(ops, params, f"decode{level}", spec.decoders[level],
-                             (skips[level], t))
+        t = level_fn(f"decode{level}", spec.decoders[level], (skips[level], t))
         skips[level] = None
         head = spec.heads[level]
         if level == 0 and len(head) == 1 and head[0].kind == "conv" and head[0].ks == 1 \
@@ -559,10 +581,10 @@ def forward_train(spec: UNetSpec, params: dict, x: torch.Tensor, *,
             planes = planes + b.to(t.dtype)[:, None]
             results[0] = ChannelLeading(planes.float().reshape(w.shape[0], 1, *t.shape[:3]))
         elif head:
-            r = _run_level_train(ops, params, f"output{level}", head, t)
+            r = level_fn(f"output{level}", head, t)
             results[level] = r.float().unsqueeze(0)
         if spec.tails[level]:
-            t = _run_level_train(ops, params, f"decode_tail{level}", spec.tails[level], t)
+            t = level_fn(f"decode_tail{level}", spec.tails[level], t)
     return results
 
 

@@ -104,6 +104,10 @@ class AugOptions:
                 kwargs[k] = int(float(v)) if names[k] in (int, "int") else float(v)
         return cls(**kwargs)
 
+    def to_dict(self) -> dict:
+        """Every option by id: ``AugOptions.from_dict(o.to_dict()) == o``."""
+        return {f.name: getattr(self, f.name) for f in fields(self)}
+
 
 @dataclass
 class Stamp:

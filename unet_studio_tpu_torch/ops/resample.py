@@ -125,6 +125,25 @@ def resample_to_model_grid(vol: torch.Tensor, image_vs, model_shape_xyz, model_v
     return resample_affine(vol, torch.from_numpy(mat), out_dhw, method=method)
 
 
+def scale_to_shape(vol: torch.Tensor, out_shape_dhw, method="linear") -> torch.Tensor:
+    """TIPL ``tipl::scale``: stretch the whole FOV to a new grid
+    (corner-anchored: dst index i maps to src i * (in-1)/(out-1))."""
+    d, h, w = vol.shape[:3]
+    od, oh, ow = out_shape_dhw
+    scale = torch.tensor([(w - 1) / max(ow - 1, 1), (h - 1) / max(oh - 1, 1),
+                          (d - 1) / max(od - 1, 1)], dtype=torch.float32, device=vol.device)
+    grid = meshgrid_xyz(out_shape_dhw, vol.device) * scale
+    if method == "linear":
+        return sample_linear(vol, grid)
+    return sample_majority(vol, grid)
+
+
+def normalize01(vol: torch.Tensor) -> torch.Tensor:
+    """tipl::normalize: scale max to 1 (max <= 0 leaves the volume as it is)."""
+    mx = vol.max()
+    return torch.where(mx > 0, vol / mx, vol)
+
+
 # ---------------------------------------------------------------------------
 # affine transforms (reference: tipl::affine_param / transformation_matrix)
 # ---------------------------------------------------------------------------

@@ -184,14 +184,17 @@ def make_spatial_infer(model: UNet3d, mesh: Mesh, compute_dtype=torch.bfloat16):
     return fn
 
 
-def make_spatial_train_step(model: UNet3d, mesh: Mesh, compute_dtype=torch.float32):
+def make_spatial_train_step(model: UNet3d, mesh: Mesh, compute_dtype=torch.float32,
+                            remat: bool = False):
     """The z-sharded train step: ``fn(params, opt_state, img, lab, lr) ->
     (params, opt_state, level-0 (ce, dice, mse))`` with ``img`` (1, D/n, H,
     W, C) and ``lab`` (1, D/n, H, W) this rank's slabs.  The gradients of
     the slabs are summed over the space axis, then clipped and applied
     (SGD-nesterov, in place), so the parameters stay the same on every
     rank.  No augmentation, as in the JAX package: feed augmented or raw
-    volumes."""
+    volumes.  ``remat=True`` checkpoints each level: the backward reruns
+    its forward, halo exchanges and slab sums included, on every rank in
+    the same order."""
     spec, n_classes = model.spec, model.out_count
     slab = _Slab(mesh)
     cfg = SGDConfig()
@@ -201,7 +204,7 @@ def make_spatial_train_step(model: UNet3d, mesh: Mesh, compute_dtype=torch.float
         names = list(params)
         leaves = [params[k].detach().requires_grad_() for k in names]
         outs = forward(spec, dict(zip(names, leaves)), img, compute_dtype=compute_dtype,
-                       slab=slab, train=True)
+                       slab=slab, train=True, remat=remat)
         loss, lvl0 = deep_supervision_loss(outs, lab.long(), n_classes,
                                            psum=slab.psum_replicated)
         grads = list(torch.autograd.grad(loss, leaves, materialize_grads=True))
