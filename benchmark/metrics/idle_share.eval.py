@@ -1,0 +1,9 @@
+"""idle_share.eval: The share of a profiled stretch of three volumes in which no kernel,
+copy or memset ran on the card: 1 - busy / window."""
+
+
+def read(obs: dict):
+    tr = obs.get("trace")
+    if tr is None:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
