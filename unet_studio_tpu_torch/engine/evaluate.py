@@ -41,6 +41,7 @@ from ..ops.morphology import (
 )
 from ..ops.resample import diag_affine_matrices, model_grid_transform, separable_resample
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 # preproc operations vocabulary (evaluate.cpp:5-17)
 OPERATIONS = (
@@ -75,6 +76,7 @@ class EvalCase:
     mask: np.ndarray | None = None
     is_label: bool = True
     error_msg: str = ""
+    seq: int = -1  # the volume's place in its ``run`` (the ids of its spans, with ``path``)
     _device_prob: object = None  # (C,D,H,W) on the device, fetched lazily
     _label_prob: np.ndarray | None = None
 
@@ -182,28 +184,30 @@ class EvaluateEngine:
         img = read_nifti(path)
         case.untouched_affine = img.affine.copy()
         case.untouched_vs = img.voxel_size.copy()
-        img = canonicalize_lps(img)
+        with span("eval.read.canonicalize"):
+            img = canonicalize_lps(img)
         case.flip_swap = img.flip_swap
 
-        data = img.data.astype(np.float32)
-        vols = data[None] if data.ndim == 3 else data  # (T,D,H,W)
-        for op in filter(None, self.model.preproc.split("+")):
-            vols = np.stack([run_preproc_op(v, op) for v in vols])
-        for op in filter(None, self.model.orientation.split("+")):
-            vols = np.stack([run_preproc_op(v, op) for v in vols])
+        with span("eval.read.normalize"):
+            data = img.data.astype(np.float32)
+            vols = data[None] if data.ndim == 3 else data  # (T,D,H,W)
+            for op in filter(None, self.model.preproc.split("+")):
+                vols = np.stack([run_preproc_op(v, op) for v in vols])
+            for op in filter(None, self.model.orientation.split("+")):
+                vols = np.stack([run_preproc_op(v, op) for v in vols])
 
-        case.image_dim = vols.shape[1:]
-        case.image_vs = img.voxel_size
-        in_c = self.model.in_count
-        t = vols.shape[0]
-        if t % in_c != 0:
-            case.error_msg = f"{path}: {t} volumes not divisible by model in_count {in_c}"
-            return case
-        for g in range(t // in_c):
-            chunk = np.moveaxis(vols[g * in_c : (g + 1) * in_c], 0, -1)  # (D,H,W,C)
-            mx = chunk.reshape(-1, in_c).max(axis=0)
-            mx[mx <= 0] = 1.0
-            case.model_io.append(np.ascontiguousarray(chunk / mx, np.float32))
+            case.image_dim = vols.shape[1:]
+            case.image_vs = img.voxel_size
+            in_c = self.model.in_count
+            t = vols.shape[0]
+            if t % in_c != 0:
+                case.error_msg = f"{path}: {t} volumes not divisible by model in_count {in_c}"
+                return case
+            for g in range(t // in_c):
+                chunk = np.moveaxis(vols[g * in_c : (g + 1) * in_c], 0, -1)  # (D,H,W,C)
+                mx = chunk.reshape(-1, in_c).max(axis=0)
+                mx[mx <= 0] = 1.0
+                case.model_io.append(np.ascontiguousarray(chunk / mx, np.float32))
         return case
 
     # -- stage 2: device inference -------------------------------------------
@@ -222,19 +226,24 @@ class EvaluateEngine:
         ``fetch_prob`` or a consumer asks (``EvalCase.label_prob``)."""
         if case.error_msg or not case.model_io:
             return case
-        run = self._infer_fn(tuple(case.image_dim), case.image_vs)
-        labels, probs, fgs = [], [], []
-        for chunk in case.model_io:
-            label, prob, fg = run(torch.from_numpy(chunk).to(self.device))
-            labels.append(label)
-            probs.append(prob)
-            fgs.append(fg)
-        case.label = torch.cat(labels, 0).cpu().numpy().astype(np.int32)
-        # multi-chunk cases stack along D = axis 1 of the (C,D,H,W) prob
-        case._device_prob = torch.cat(probs, 1)
-        case.fg_prob = torch.cat(fgs, 0).float().cpu().numpy()
-        if fetch_prob:
-            case.label_prob  # noqa: B018  (property fetch)
+        with span("eval.infer", seq=case.seq, path=case.path):
+            run = self._infer_fn(tuple(case.image_dim), case.image_vs)
+            labels, probs, fgs = [], [], []
+            for chunk in case.model_io:
+                with span("eval.infer.h2d"):
+                    x = torch.from_numpy(chunk).to(self.device)
+                with span("eval.infer.forward"):
+                    label, prob, fg = run(x)
+                labels.append(label)
+                probs.append(prob)
+                fgs.append(fg)
+            with span("eval.infer.fetch"):
+                case.label = torch.cat(labels, 0).cpu().numpy().astype(np.int32)
+                # multi-chunk cases stack along D = axis 1 of the (C,D,H,W) prob
+                case._device_prob = torch.cat(probs, 1)
+                case.fg_prob = torch.cat(fgs, 0).float().cpu().numpy()
+                if fetch_prob:
+                    case.label_prob  # noqa: B018  (property fetch)
         return case
 
     # -- stage 3: host postproc ------------------------------------------------
@@ -242,12 +251,13 @@ class EvaluateEngine:
     def postprocess(self, case: EvalCase) -> EvalCase:
         if case.error_msg or case.label is None:
             return case
-        if "create_mask" in self.model.postproc:
-            case.mask = (case.fg_prob > 0.5).astype(np.uint8)
-        if self.model.single_component_label:
-            case.label = apply_single_component(
-                case.label, self.model.single_component_label
-            ).astype(np.int32)
+        with span("eval.post", seq=case.seq, path=case.path):
+            if "create_mask" in self.model.postproc:
+                case.mask = (case.fg_prob > 0.5).astype(np.uint8)
+            if self.model.single_component_label:
+                case.label = apply_single_component(
+                    case.label, self.model.single_component_label
+                ).astype(np.int32)
         return case
 
     # -- interactive postproc actions (evaluate.cpp:303-383) -------------------
@@ -316,22 +326,25 @@ class EvaluateEngine:
         def undo(data):
             return apply_flip_swap(data, case.flip_swap, reverse=True)
 
-        vs = case.untouched_vs
-        aff = case.untouched_affine
-        if output_type == 0:
-            write_nifti(out_path, undo(case.label.astype(np.int16)), vs, aff)
-        elif output_type == 1:
-            orig = read_nifti(case.path).data.astype(np.float32)
-            fg = undo(case.fg_prob)
-            if orig.ndim == 4:
-                fg = fg[None]
-            write_nifti(out_path, orig * fg, vs, aff)
-        elif output_type == 2:
-            write_nifti(out_path, undo(case.fg_prob.astype(np.float32)), vs, aff)
-        elif output_type == 3:
-            write_nifti(out_path, np.stack([undo(p) for p in case.label_prob]), vs, aff)
-        else:
-            return False
+        def write(data):
+            with span("eval.save.write"):
+                write_nifti(out_path, data, case.untouched_vs, case.untouched_affine)
+
+        with span("eval.save", seq=case.seq, path=case.path):
+            if output_type == 0:
+                write(undo(case.label.astype(np.int16)))
+            elif output_type == 1:
+                orig = read_nifti(case.path).data.astype(np.float32)
+                fg = undo(case.fg_prob)
+                if orig.ndim == 4:
+                    fg = fg[None]
+                write(orig * fg)
+            elif output_type == 2:
+                write(undo(case.fg_prob.astype(np.float32)))
+            elif output_type == 3:
+                write(np.stack([undo(p) for p in case.label_prob]))
+            else:
+                return False
         return True
 
     # -- pipelined run -----------------------------------------------------------
@@ -345,16 +358,18 @@ class EvaluateEngine:
         q: queue.Queue = queue.Queue(maxsize=self.lookahead)
 
         def reader():
-            for p in paths:
-                try:
-                    q.put(self.preprocess(p))
-                except Exception as e:  # noqa: BLE001  (reported on the case)
-                    c = EvalCase(path=str(p))
-                    c.error_msg = f"{p}: {e}"
-                    q.put(c)
+            for i, p in enumerate(paths):
+                with span("eval.read", seq=i, path=str(p)):
+                    try:
+                        c = self.preprocess(p)
+                    except Exception as e:  # noqa: BLE001  (reported on the case)
+                        c = EvalCase(path=str(p))
+                        c.error_msg = f"{p}: {e}"
+                c.seq = i
+                q.put(c)
             q.put(None)
 
-        t = threading.Thread(target=reader, daemon=True)
+        t = threading.Thread(target=reader, daemon=True, name="unet-eval-reader")
         t.start()
 
         def finish(case, fut):
@@ -371,7 +386,10 @@ class EvaluateEngine:
         with ThreadPoolExecutor(max_workers=self.post_workers,
                                 thread_name_prefix="unet-output") as post:
             while True:
-                case = q.get()
+                with span("eval.wait") as waited:
+                    case = q.get()
+                    if case is not None:
+                        waited.tag(seq=case.seq, path=case.path)
                 if case is None:
                     break
                 fut = None

@@ -54,6 +54,7 @@ from ..ops.simulate import (
 )
 from ..parallel.mesh import Mesh, all_reduce_sum, local_rows, replicate
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .optimizer import SGDConfig, init_opt_state, poly_lr, sgd_step
 
 
@@ -153,23 +154,26 @@ class TrainStep:
 
     @torch.no_grad()
     def synthesize(self, image: torch.Tensor, label: torch.Tensor, is_template: bool,
-                   rng: np.random.Generator, *, plain: bool = False):
+                   rng: np.random.Generator, *, plain: bool = False, seed_id=None):
         """One item, image (D, H, W, C) and label (D, H, W) on the device:
         contrast simulation then the augmentation, with the draws of
         ``rng`` (simulation first).  Returns f32 (image', label').  The
         label goes on in its dtype: a uint8 one reaches the warp as uint8,
-        which then makes the host wait for no range check."""
+        which then makes the host wait for no range check.  ``seed_id``
+        names the item's ``synth`` span."""
         opt = self.param.options
-        t1w = image[..., 0].float()
-        if self.param.is_label and (is_template or not self.has_subjects):
-            x = simulate_modality_template(t1w, label, self.n_classes,
-                                           draw_simulation(rng, self.n_classes))
-        else:
-            x = simulate_modality_subject(t1w, draw_simulation(rng, None))
-        draws = draw_augmentation(opt, tuple(label.shape), rng, is_label=self.param.is_label,
-                                  device=self.device)
-        return visual_perception_augmentation(x[..., None], label, draws, opt,
-                                              self.param.is_label, plain=plain)
+        template = self.param.is_label and (is_template or not self.has_subjects)
+        with span("synth", seed_id=seed_id):
+            with span("synth.draw"):
+                sim = draw_simulation(rng, self.n_classes if template else None)
+                draws = draw_augmentation(opt, tuple(label.shape), rng,
+                                          is_label=self.param.is_label, device=self.device)
+            with span("synth.simulate"):
+                t1w = image[..., 0].float()
+                x = simulate_modality_template(t1w, label, self.n_classes, sim) if template \
+                    else simulate_modality_subject(t1w, sim)
+            return visual_perception_augmentation(x[..., None], label, draws, opt,
+                                                  self.param.is_label, plain=plain)
 
     def grads(self, images, labels, need_shift=None, *, is_template=None, seeds=None,
               plain: bool = False, timings=None):
@@ -193,30 +197,35 @@ class TrainStep:
         syn_s = fwd_s = bwd_s = 0.0
         for i in range(b):
             collapse = self.collapse_k if self.any_shift and shift[i] else 0
+            seed_id = int(seeds[i][1]) if seeds is not None else None
             t0 = self._sync_time(timings)
             img, lab = images[i], labels[i]
             if seeds is not None:
                 img, lab = self.synthesize(img, lab, bool(tmpl[i]), item_rng(*seeds[i]),
-                                           plain=plain)
+                                           plain=plain, seed_id=seed_id)
             t1 = self._sync_time(timings)
-            outs = forward_train(self.spec, leaf_dict, img[None], compute_dtype=self.cdt,
-                                 plain=plain, remat=self.param.remat)
-            loss, lvl0 = self._loss(outs, lab[None].long(), self.n_classes, collapse,
-                                    *self.cost)
+            with span("train.forward_loss", seed_id=seed_id):
+                outs = forward_train(self.spec, leaf_dict, img[None], compute_dtype=self.cdt,
+                                     plain=plain, remat=self.param.remat)
+                loss, lvl0 = self._loss(outs, lab[None].long(), self.n_classes, collapse,
+                                        *self.cost)
             t2 = self._sync_time(timings)
-            g = torch.autograd.grad(loss, leaves, materialize_grads=True)
-            del outs
+            with span("train.backward", seed_id=seed_id):
+                g = torch.autograd.grad(loss, leaves, materialize_grads=True)
+                del outs
             t3 = self._sync_time(timings)
             syn_s, fwd_s, bwd_s = syn_s + t1 - t0, fwd_s + t2 - t1, bwd_s + t3 - t2
-            acc = list(g) if acc is None else [a.add_(x) for a, x in zip(acc, g)]
-            record = 0.0 if self.has_subjects and tmpl[i] else 1.0
-            metrics += torch.cat([torch.stack(lvl0).detach(), metrics.new_ones(1)]) * record
-            loss_sum += loss.detach()
+            with span("train.accumulate", seed_id=seed_id):
+                acc = list(g) if acc is None else [a.add_(x) for a, x in zip(acc, g)]
+                record = 0.0 if self.has_subjects and tmpl[i] else 1.0
+                metrics += torch.cat([torch.stack(lvl0).detach(), metrics.new_ones(1)]) * record
+                loss_sum += loss.detach()
         if timings is not None:
             timings.update(synth_s=syn_s, forward_s=fwd_s, backward_s=bwd_s)
         if self.mesh is not None and self.mesh.n_data > 1:
             t0 = self._sync_time(timings)
-            all_reduce_sum([*acc, metrics, loss_sum], self.mesh.data_group)
+            with span("train.allreduce"):
+                all_reduce_sum([*acc, metrics, loss_sum], self.mesh.data_group)
             if timings is not None:
                 timings["allreduce_s"] = self._sync_time(timings) - t0
         grads = {k: a / self.param.batch_size for k, a in zip(names, acc)}
@@ -228,7 +237,8 @@ class TrainStep:
                                           seeds=seeds, timings=timings)
         t0 = self._sync_time(timings)
         lr = self.param.learning_rate if lr is None else lr
-        opt_state = sgd_step(self.params, grads, opt_state, lr, self.sgd)
+        with span("train.optimizer"):
+            opt_state = sgd_step(self.params, grads, opt_state, lr, self.sgd)
         if timings is not None:
             timings["optimizer_s"] = self._sync_time(timings) - t0
         return opt_state, metrics, loss
@@ -394,6 +404,10 @@ class TrainEngine:
         return ids
 
     def _assemble_batch(self, epoch: int):
+        with span("train.assemble", epoch=epoch):
+            return self._assemble(epoch)
+
+    def _assemble(self, epoch: int):
         ds = self.dataset
         ids = self._epoch_draws(epoch)
         if self.mesh is not None:
@@ -452,7 +466,8 @@ class TrainEngine:
         # validation on the held-out templates (train.cpp:826-896), while
         # the reader assembles the next epoch's batch
         self.validation_status = "validating"
-        vals = [self._valid(img, lab) for img, lab in self._test_data]
+        with span("train.valid", epoch=e):
+            vals = [self._valid(img, lab) for img, lab in self._test_data]
         self.cur_epoch += 1
         self._submit_prefetch(self.cur_epoch)
         metrics = metrics.cpu().numpy()

@@ -22,6 +22,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils.profiling import span
+
 # NIfTI-1 datatype codes
 _DT_UINT8 = 2
 _DT_INT16 = 4
@@ -114,7 +116,8 @@ def read_nifti(path: str) -> NiftiImage:
         skip = int(vox_offset) - HEADER_SIZE
         if skip > 0:
             f.read(skip)
-        raw = f.read(count * np.dtype(np_dtype).itemsize)
+        with span("eval.read.inflate"):
+            raw = f.read(count * np.dtype(np_dtype).itemsize)
         arr = np.frombuffer(raw, dtype=np_dtype, count=count)
 
     # file order: x fastest -> reshape (nt, nz, ny, nx)

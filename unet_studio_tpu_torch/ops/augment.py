@@ -43,6 +43,7 @@ from dataclasses import dataclass, field, fields
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .perlin import perlin_octaves
 from .resample import affine_matrix, apply_affine, meshgrid_xyz, supercell_warp_shape_ok
 from .warp import warp_image_label, warp_image_label_plain, warp_linear, warp_linear_plain
@@ -395,87 +396,96 @@ def visual_perception_augmentation(image: torch.Tensor, label: torch.Tensor, dra
     channels = image.shape[-1]
 
     # -- 1. downsample-and-back low-pass --------------------------------------
-    for axis, fire, ratio in ((2, dr.downsample[0], opt.downsample_x_ratio),
-                              (1, dr.downsample[1], opt.downsample_y_ratio),
-                              (0, dr.downsample[2], opt.downsample_z_ratio)):
-        if fire:
-            m = torch.from_numpy(_roundtrip_matrix(label.shape[axis], ratio)).to(dev)
-            image = torch.movedim(torch.tensordot(m, torch.movedim(image, axis, 0),
-                                                  dims=([1], [0])), 0, axis)
+    with span("synth.lowpass"):
+        for axis, fire, ratio in ((2, dr.downsample[0], opt.downsample_x_ratio),
+                                  (1, dr.downsample[1], opt.downsample_y_ratio),
+                                  (0, dr.downsample[2], opt.downsample_z_ratio)):
+            if fire:
+                m = torch.from_numpy(_roundtrip_matrix(label.shape[axis], ratio)).to(dev)
+                image = torch.movedim(torch.tensordot(m, torch.movedim(image, axis, 0),
+                                                      dims=([1], [0])), 0, axis)
 
     # -- 2. cropping (the crop centre inside the volume: a deviation) ----------
     if dr.crop:
-        r = _f32(dr.crop_size) * w
-        dims = _f32([w - 1, h - 1, d - 1])
-        center = r + _f32(dr.crop_frac) * torch.clamp_min(dims - r - r, 0.0)
-        grid = meshgrid_xyz(shape_dhw, dev)
-        inside = ((grid - center.to(dev)).abs() <= r.item()).all(-1)
-        hole = inside & (label != 0)
-        image = torch.where(hole[..., None], dr.crop_value, image)
-        label = torch.where(hole, 0.0, label)
+        with span("synth.crop"):
+            r = _f32(dr.crop_size) * w
+            dims = _f32([w - 1, h - 1, d - 1])
+            center = r + _f32(dr.crop_frac) * torch.clamp_min(dims - r - r, 0.0)
+            grid = meshgrid_xyz(shape_dhw, dev)
+            inside = ((grid - center.to(dev)).abs() <= r.item()).all(-1)
+            hole = inside & (label != 0)
+            image = torch.where(hole[..., None], dr.crop_value, image)
+            label = torch.where(hole, 0.0, label)
 
     # -- 3. truncation z -------------------------------------------------------
     if dr.trunc:
-        n_top = torch.floor(_f32(dr.trunc_top).abs() * 0.5 * d)
-        n_bot = torch.floor(_f32(dr.trunc_bot).abs() * 0.5 * d)
-        zi = torch.arange(d, dtype=torch.float32, device=dev)[:, None, None]
-        keep = ((zi < (d - n_top).item()) & (zi >= n_bot.item())).float()
-        image = image * keep[..., None]
-        label = label * keep
+        with span("synth.trunc"):
+            n_top = torch.floor(_f32(dr.trunc_top).abs() * 0.5 * d)
+            n_bot = torch.floor(_f32(dr.trunc_bot).abs() * 0.5 * d)
+            zi = torch.arange(d, dtype=torch.float32, device=dev)[:, None, None]
+            keep = ((zi < (d - n_top).item()) & (zi >= n_bot.item())).float()
+            image = image * keep[..., None]
+            label = label * keep
 
     # -- 4. noise: uniform [0, mag) additive ------------------------------------
     if dr.noise is not None:
-        image = image + dr.noise.to(dev)
+        with span("synth.noise"):
+            image = image + dr.noise.to(dev)
 
     # -- 5. lighting -------------------------------------------------------------
-    center = _f32([w, h, d]) * 0.5
-    if dr.ambient:
-        image = image + (_f32(dr.ambient_u) * opt.ambient_mag).item()
-    if dr.diffuse:
-        f = _f32(dr.diffuse_dir)
-        f = f / torch.clamp_min(torch.sqrt((f * f).sum()), 1e-12)
-        f = f * (opt.diffuse_mag / max_dim)
-        grid = meshgrid_xyz(shape_dhw, dev)
-        gain = torch.clamp_min(1.0 + _dot3(grid - center.to(dev), f), 0.0)
-        image = image * gain[..., None]
-    if dr.specular:
-        c = _f32(dr.specular_frac) * _f32([w - 1, h - 1, d - 1])
-        freq = opt.specular_freq * (np.pi * 0.5) / max_dim
-        mag = opt.specular_mag
-        grid = meshgrid_xyz(shape_dhw, dev)
-        dist = _norm3(grid - c.to(dev))[..., 0]
-        gain = (torch.cos(dist * freq) + 1.0) * mag + (1.0 - 2.0 * mag)
-        image = image * gain[..., None]
+    with span("synth.lighting"):
+        center = _f32([w, h, d]) * 0.5
+        if dr.ambient:
+            image = image + (_f32(dr.ambient_u) * opt.ambient_mag).item()
+        if dr.diffuse:
+            f = _f32(dr.diffuse_dir)
+            f = f / torch.clamp_min(torch.sqrt((f * f).sum()), 1e-12)
+            f = f * (opt.diffuse_mag / max_dim)
+            grid = meshgrid_xyz(shape_dhw, dev)
+            gain = torch.clamp_min(1.0 + _dot3(grid - center.to(dev), f), 0.0)
+            image = image * gain[..., None]
+        if dr.specular:
+            c = _f32(dr.specular_frac) * _f32([w - 1, h - 1, d - 1])
+            freq = opt.specular_freq * (np.pi * 0.5) / max_dim
+            mag = opt.specular_mag
+            grid = meshgrid_xyz(shape_dhw, dev)
+            dist = _norm3(grid - c.to(dev))[..., 0]
+            gain = (torch.cos(dist * freq) + 1.0) * mag + (1.0 - 2.0 * mag)
+            image = image * gain[..., None]
 
     # -- 6. the displacement field and the warp ---------------------------------
-    coords = warp_coords(dr, opt, shape_dhw, dev)
-    use_sc = _supercell_warp_ok(opt, shape_dhw)
-    if is_label:
-        # a uint8 label reaches the warp as uint8: cropping and truncation
-        # only zero voxels, so after them the cast back is exact
-        wlab = label if label_u8 is None else (
-            label.to(torch.uint8) if dr.crop or dr.trunc else label_u8)
-        ch0, out_label = warp_il(image[..., 0].contiguous(), wlab, coords, use_sc)
-        # extra channels: the window where the JAX package takes its
-        # supercell sampler (one extra channel at most)
-        rest = [warp_lin(image[..., c].contiguous(), coords, use_sc and channels <= 2)
-                for c in range(1, channels)]
-        out_image = torch.stack([ch0, *rest], dim=-1)
-    elif channels == 1 and use_sc:
-        out_image = warp_lin(image[..., 0].contiguous(), coords, True)[..., None]
-        out_label = warp_lin(label.contiguous(), coords, True)
-    else:
-        out_image = torch.stack([warp_lin(image[..., c].contiguous(), coords, False)
-                                 for c in range(channels)], dim=-1)
-        out_label = warp_lin(label.contiguous(), coords, False)
+    with span("synth.coords"):
+        coords = warp_coords(dr, opt, shape_dhw, dev)
+    with span("synth.warp"):
+        use_sc = _supercell_warp_ok(opt, shape_dhw)
+        if is_label:
+            # a uint8 label reaches the warp as uint8: cropping and truncation
+            # only zero voxels, so after them the cast back is exact
+            wlab = label if label_u8 is None else (
+                label.to(torch.uint8) if dr.crop or dr.trunc else label_u8)
+            ch0, out_label = warp_il(image[..., 0].contiguous(), wlab, coords, use_sc)
+            # extra channels: the window where the JAX package takes its
+            # supercell sampler (one extra channel at most)
+            rest = [warp_lin(image[..., c].contiguous(), coords, use_sc and channels <= 2)
+                    for c in range(1, channels)]
+            out_image = torch.stack([ch0, *rest], dim=-1)
+        elif channels == 1 and use_sc:
+            out_image = warp_lin(image[..., 0].contiguous(), coords, True)[..., None]
+            out_label = warp_lin(label.contiguous(), coords, True)
+        else:
+            out_image = torch.stack([warp_lin(image[..., c].contiguous(), coords, False)
+                                     for c in range(channels)], dim=-1)
+            out_label = warp_lin(label.contiguous(), coords, False)
 
     # -- 7. clamp + normalize per channel ----------------------------------------
-    out_image = _normalize(torch.clamp_min(out_image, 0.0))
+    with span("synth.normalize"):
+        out_image = _normalize(torch.clamp_min(out_image, 0.0))
 
     # -- 8. background synthesis (label mode) ------------------------------------
     if is_label:
         if dr.zero_background:
-            out_image = torch.where((out_label == 0)[..., None], 0.0, out_image)
+            with span("synth.normalize"):
+                out_image = torch.where((out_label == 0)[..., None], 0.0, out_image)
         else:
             out_image = _synthesize_background(out_image, out_label, image, label, dr, opt,
                                                warp_lin)
@@ -496,42 +506,46 @@ def _synthesize_background(img, out_label, image, label, dr: AugDraws, opt: AugO
     shape_dhw = (d, h, w)
     bg_mask = (out_label == 0)[..., None]
     if dr.stamp:
-        # at quarter resolution, nearest-upsampled (a deviation: the
-        # reference renders full-resolution stamps); with one channel, from
-        # a mean-pooled source in low-resolution voxel units through the
-        # window sampler
-        masked = image * (label != 0)[..., None]
-        r = 4 if all(s % 4 == 0 for s in shape_dhw) else (
-            2 if all(s % 2 == 0 for s in shape_dhw) else 1)
-        low = (d // r, h // r, w // r)
-        grid_low = meshgrid_xyz(low, dev) * float(r)
-        use_sc = r > 1 and image.shape[-1] == 1 and supercell_warp_shape_ok(low)
-        if use_sc:
-            mlow = masked[..., 0].reshape(d // r, r, h // r, r, w // r, r).mean(dim=(1, 3, 5))
-        whd = _f32([w, h, d])
-        for st in dr.stamps:
-            m34 = affine_matrix(_f32(st.translation) * whd, _f32(st.rotation), _f32(st.scaling),
-                                shape_dhw)
-            coords = apply_affine(grid_low, m34)
+        with span("synth.stamp"):
+            # at quarter resolution, nearest-upsampled (a deviation: the
+            # reference renders full-resolution stamps); with one channel,
+            # from a mean-pooled source in low-resolution voxel units
+            # through the window sampler
+            masked = image * (label != 0)[..., None]
+            r = 4 if all(s % 4 == 0 for s in shape_dhw) else (
+                2 if all(s % 2 == 0 for s in shape_dhw) else 1)
+            low = (d // r, h // r, w // r)
+            grid_low = meshgrid_xyz(low, dev) * float(r)
+            use_sc = r > 1 and image.shape[-1] == 1 and supercell_warp_shape_ok(low)
             if use_sc:
-                bg = warp_lin(mlow, coords * (1.0 / r), True)[..., None]
-            else:
-                bg = torch.stack([warp_lin(masked[..., c].contiguous(), coords, False)
-                                  for c in range(image.shape[-1])], dim=-1)
-            bg = torch.clamp_min(bg, 0.0)
-            bg = _normalize_to(bg, _f32(st.target) * opt.rubber_stamping_mag)
-            if r > 1:
-                bg = _upsample(bg, r, shape_dhw)
-            img = torch.where(bg_mask, _blend(img, bg), img)
+                mlow = masked[..., 0].reshape(d // r, r, h // r, r, w // r, r).mean(
+                    dim=(1, 3, 5))
+            whd = _f32([w, h, d])
+            for st in dr.stamps:
+                m34 = affine_matrix(_f32(st.translation) * whd, _f32(st.rotation),
+                                    _f32(st.scaling), shape_dhw)
+                coords = apply_affine(grid_low, m34)
+                if use_sc:
+                    bg = warp_lin(mlow, coords * (1.0 / r), True)[..., None]
+                else:
+                    bg = torch.stack([warp_lin(masked[..., c].contiguous(), coords, False)
+                                      for c in range(image.shape[-1])], dim=-1)
+                bg = torch.clamp_min(bg, 0.0)
+                bg = _normalize_to(bg, _f32(st.target) * opt.rubber_stamping_mag)
+                if r > 1:
+                    bg = _upsample(bg, r, shape_dhw)
+                img = torch.where(bg_mask, _blend(img, bg), img)
     if dr.perlin:
-        # half-resolution noise, nearest-upsampled (a deviation), sampled at
-        # the even full-resolution positions of the same lattice
-        zoom = _f32(dr.perlin_zoom)
-        half = ((d + 1) // 2, (h + 1) // 2, (w + 1) // 2)
-        bg = perlin_octaves(half, zoom * 2.0, dr.perlin_seed, device=dev)
-        mx = bg.amax()
-        target = (_f32(dr.perlin_mag) * opt.perlin_texture_mag).to(dev)
-        bg = torch.where(mx > 0, bg * (target / mx), bg)
-        bg = _upsample(bg, 2, shape_dhw)
-        img = torch.where(bg_mask, _blend(img, bg[..., None]), img)
-    return _normalize(torch.clamp_min(img, 0.0))
+        with span("synth.perlin"):
+            # half-resolution noise, nearest-upsampled (a deviation), sampled
+            # at the even full-resolution positions of the same lattice
+            zoom = _f32(dr.perlin_zoom)
+            half = ((d + 1) // 2, (h + 1) // 2, (w + 1) // 2)
+            bg = perlin_octaves(half, zoom * 2.0, dr.perlin_seed, device=dev)
+            mx = bg.amax()
+            target = (_f32(dr.perlin_mag) * opt.perlin_texture_mag).to(dev)
+            bg = torch.where(mx > 0, bg * (target / mx), bg)
+            bg = _upsample(bg, 2, shape_dhw)
+            img = torch.where(bg_mask, _blend(img, bg[..., None]), img)
+    with span("synth.normalize"):
+        return _normalize(torch.clamp_min(img, 0.0))
