@@ -279,3 +279,59 @@ def test_supercell_gate_and_options_roundtrip():
     assert TA.AugOptions.from_dict(dataclasses.asdict(opt)) == opt
     assert TA.AugOptions.from_dict({"cropping": "2.0", "noise_mag": "0.25"}).cropping == 2
     np.testing.assert_array_equal(TA._roundtrip_matrix(16, 0.5), JA._roundtrip_matrix(16, 0.5))
+
+
+def test_supercell_gate_cache_matches_a_fresh_scan():
+    """The memoised gate answers as the scan itself does, one entry per
+    (options, grid); options equal by value share an entry, a changed
+    field has its own."""
+    gate = TA._supercell_warp_ok
+    gate.cache_clear()
+    kws = ({}, {"rotation_x": 1.5}, {"lens_distortion": 0.3}, {"scaling_down": 0.5})
+    shapes = ((192, 224, 192), (16, 16, 16), (15, 16, 16))
+    fresh = {(i, shape): gate.__wrapped__(TA.AugOptions(**kw), shape)
+             for i, kw in enumerate(kws) for shape in shapes}
+    for _ in range(2):  # filled, then read
+        for i, kw in enumerate(kws):
+            for shape in shapes:
+                assert gate(TA.AugOptions(**kw), shape) is fresh[i, shape]
+    info = gate.cache_info()
+    assert (info.misses, info.hits, info.currsize) == (12, 12, 12)
+    assert fresh[0, (16, 16, 16)] and not fresh[0, (15, 16, 16)]
+    assert not fresh[3, (16, 16, 16)]  # scaling_down 0.5: its own answer
+    same = dataclasses.replace(TA.AugOptions(), rotation_x=1.5)
+    assert gate(same, torch.Size((16, 16, 16))) is fresh[1, (16, 16, 16)]
+    assert gate.cache_info().misses == 12
+
+
+def test_cached_constants_leave_the_augmentation_bitwise_unchanged(monkeypatch):
+    """The same draws give the same image and label, bit for bit, with the
+    caches cold, warm, and with the constants built anew on every call;
+    the shared low-pass matrices are never written into."""
+    img, label = _phantom(16)
+    opt = TA.AugOptions(downsample_x=4, downsample_y=4, downsample_z=4,
+                        downsample_x_ratio=0.5, downsample_y_ratio=0.25,
+                        downsample_z_ratio=0.75)
+    draws = TA.draw_augmentation(opt, img.shape, np.random.default_rng(7))
+    assert all(draws.downsample) and TA._supercell_warp_ok.__wrapped__(opt, img.shape)
+
+    def run():
+        return TA.visual_perception_augmentation(
+            torch.from_numpy(img[..., None]), torch.from_numpy(label), draws, opt)
+
+    TA._supercell_warp_ok.cache_clear()
+    TA._roundtrip_matrix_on.cache_clear()
+    cold = run()
+    warm = run()
+    assert TA._roundtrip_matrix_on.cache_info().hits == 3
+    assert TA._supercell_warp_ok.cache_info().hits == 1
+    with monkeypatch.context() as m:
+        m.setattr(TA, "_supercell_warp_ok", TA._supercell_warp_ok.__wrapped__)
+        m.setattr(TA, "_roundtrip_matrix_on",
+                  lambda n, ratio, device: torch.from_numpy(TA._roundtrip_matrix(n, ratio)))
+        uncached = run()
+    for out in (warm, uncached):
+        assert torch.equal(out[0], cold[0]) and torch.equal(out[1], cold[1])
+    for ratio in (0.5, 0.25, 0.75):
+        np.testing.assert_array_equal(TA._roundtrip_matrix_on(16, ratio, "cpu").numpy(),
+                                      TA._roundtrip_matrix(16, ratio))

@@ -22,6 +22,7 @@ from unet_studio_tpu_torch.engine.train import TrainParam, build_train_step, ite
 from unet_studio_tpu_torch.io.nifti import write_nifti
 from unet_studio_tpu_torch.models import serialize as TS
 from unet_studio_tpu_torch.models.unet3d import UNet3d
+from unet_studio_tpu_torch.ops import augment as TA
 from unet_studio_tpu_torch.ops.augment import AugOptions
 from unet_studio_tpu_torch.utils import profiling as P
 from torch_one_thread import one_thread  # noqa: F401  (autouse)
@@ -119,19 +120,25 @@ def test_worker_span_on_the_trace_clock(tmp_path):
     assert names == {"MainThread", "unet-test-worker"}
 
 
-def test_synthesize_spans():
+def _synth_setup(opts: AugOptions, n: int = 16):
+    """A tiny network's train step with ``opts`` and an n^3 ball phantom:
+    (step, image (n, n, n, 1), label (n, n, n))."""
     arch = "\n".join(["conv8,ks3,stride1+norm,leaky_relu",
                       "conv8,ks3,stride2+norm,leaky_relu+conv_trans8,ks2,stride2",
                       "conv8,ks3,stride1+norm,leaky_relu+conv3,ks1,stride1"])
     model = UNet3d.create(1, 3, arch, seed=0, device="cpu")
-    n = 16
     z, y, x = np.mgrid[0:n, 0:n, 0:n]
     r = np.sqrt((x - n / 2) ** 2 + (y - n / 2) ** 2 + (z - n / 2) ** 2)
     label = torch.from_numpy((r < n / 3).astype(np.float32) + (r < n / 6))
     image = torch.from_numpy(np.clip(1.0 - r / (n / 2), 0, 1).astype(np.float32))[..., None]
-    opts = AugOptions(cropping=4, truncation_z=4, noise=4, rubber_stamping=4, perlin_texture=4)
     step, _ = build_train_step(model, TrainParam(batch_size=1, compute_dtype="float32",
                                                  options=opts), device="cpu")
+    return step, image, label
+
+
+def test_synthesize_spans():
+    step, image, label = _synth_setup(
+        AugOptions(cropping=4, truncation_z=4, noise=4, rubber_stamping=4, perlin_texture=4))
     with _cpu_profile() as prof:
         step.synthesize(image, label, True, item_rng(0, 5), seed_id=5)
     recs = P.records()
@@ -144,6 +151,35 @@ def test_synthesize_spans():
     assert children <= SYNTH_STAGES
     ranges = {e.name for e in prof.events() if e.name.startswith("unet.")}
     assert ranges == {"unet." + name for name in children | {"synth"}}
+
+
+def test_synthesis_constants_miss_once_per_key():
+    """Under a profile, the synthesis's cached constants count
+    ``const_miss`` on the stage that computed them: once per key on the
+    first item (the gate in ``synth.warp``, one low-pass matrix per
+    (size, ratio) in ``synth.lowpass``), never after."""
+    step, image, label = _synth_setup(
+        AugOptions(downsample_x=4, downsample_y=4, downsample_z=4, downsample_y_ratio=0.25))
+    TA._supercell_warp_ok.cache_clear()
+    TA._roundtrip_matrix_on.cache_clear()
+    with _cpu_profile():
+        for seed_id in range(3):
+            step.synthesize(image, label, True, item_rng(0, seed_id), seed_id=seed_id)
+    recs = P.records()
+    by_id = {r.id: r for r in recs}
+
+    def item(r):
+        while r.name != "synth":
+            r = by_id[r.parent]
+        return r.ids["seed_id"]
+
+    misses = {}
+    for r in recs:
+        if r.counts.get("const_miss"):
+            key = (item(r), r.name)
+            misses[key] = misses.get(key, 0) + r.counts["const_miss"]
+    # x and z at ratio 0.5 share one matrix, y at 0.25 has its own
+    assert misses == {(0, "synth.warp"): 1, (0, "synth.lowpass"): 2}
 
 
 def test_evaluate_run_spans(tmp_path):

@@ -37,13 +37,14 @@ range the warp then needs no check of (``ops/warp.py``).
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .perlin import perlin_octaves
 from .resample import affine_matrix, apply_affine, meshgrid_xyz, supercell_warp_shape_ok
 from .warp import warp_image_label, warp_image_label_plain, warp_linear, warp_linear_plain
@@ -242,11 +243,17 @@ def draw_augmentation(options: AugOptions, shape_dhw, rng: np.random.Generator, 
     return dr
 
 
+@functools.lru_cache(maxsize=64)
 def _supercell_warp_ok(opt: AugOptions, shape_dhw) -> bool:
     """Whether the warp takes the supercell window semantics, as the JAX
     package decides it (augment.py:168-210): where the option bounds keep
     the worst draw's local Jacobian row-sums moderate (the window then
-    covers nearly every block) and the sizes suit the window."""
+    covers nearly every block) and the sizes suit the window.
+
+    Cached on (options, grid), all it reads: the scan costs tens of ms of
+    host time, and the JAX package evaluates it once, when the step is
+    traced.  ``shape_dhw`` is a tuple (or ``torch.Size``)."""
+    count("const_miss")
     if not supercell_warp_shape_ok(shape_dhw):
         return False
     s_max = float(opt.aspect_ratio) / float(opt.scaling_down)
@@ -299,6 +306,16 @@ def _roundtrip_matrix(n: int, ratio: float) -> np.ndarray:
         return m
 
     return interp_matrix(n, nl) @ interp_matrix(nl, n)
+
+
+@functools.lru_cache(maxsize=16)
+def _roundtrip_matrix_on(n: int, ratio: float, device: str) -> torch.Tensor:
+    """``_roundtrip_matrix(n, ratio)`` as an f32 tensor on ``device``,
+    built and copied once per key: the JAX package builds it when the step
+    is traced, a constant of the compiled program.  Shared by every call:
+    read it, never write into it."""
+    count("const_miss")
+    return torch.from_numpy(_roundtrip_matrix(n, ratio)).to(device)
 
 
 def _normalize(img: torch.Tensor) -> torch.Tensor:
@@ -401,7 +418,7 @@ def visual_perception_augmentation(image: torch.Tensor, label: torch.Tensor, dra
                                   (1, dr.downsample[1], opt.downsample_y_ratio),
                                   (0, dr.downsample[2], opt.downsample_z_ratio)):
             if fire:
-                m = torch.from_numpy(_roundtrip_matrix(label.shape[axis], ratio)).to(dev)
+                m = _roundtrip_matrix_on(label.shape[axis], float(ratio), str(dev))
                 image = torch.movedim(torch.tensordot(m, torch.movedim(image, axis, 0),
                                                       dims=([1], [0])), 0, axis)
 

@@ -36,7 +36,10 @@ The stage spans: ``synth`` (one train item, ``seed_id``) with
 ``train.assemble``; ``eval.read`` (``.inflate``, ``.canonicalize``,
 ``.normalize``) on the reader thread, ``eval.wait`` and ``eval.infer``
 (``.h2d``, ``.forward``, ``.fetch``) on the driving thread, ``eval.post``
-on the output pool, ``eval.save`` (``.write``).
+on the output pool, ``eval.save`` (``.write``).  Besides ``sync``, one
+counter: ``const_miss``, a constant of the synthesis computed anew (a key
+missing from ``ops/augment.py``'s caches), on ``synth.warp`` or
+``synth.lowpass``.
 """
 
 from __future__ import annotations
