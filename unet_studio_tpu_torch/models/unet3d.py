@@ -28,7 +28,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops import conv as K
-from ..ops.conv import KERNEL_CHANNELS, activation, activation_train, dhwc, ncdhw
+from ..ops.conv import activation, activation_train, dhwc, ncdhw
 from ..ops.losses import ChannelLeading
 from ..ops.norm import InstanceNormTrain, instance_norm_train_plain
 from ..ops.reduce import channel_sum_sq, channel_sum_sq_plain
@@ -223,6 +223,30 @@ def _level(run, x, remat: bool):
                                              use_reentrant=False)
 
 
+def _walk(spec: UNetSpec, run_level, x, head):
+    """The U-Net's walk, the same for every forward: the encoders, each
+    output but the deepest kept as a skip; then the decoders from the
+    deepest up, each on its (skip, up) pair, releasing the skip, then its
+    level's head through ``head(level, layers, t)`` (the logits, or None)
+    and its tail.  ``run_level(name, layers, x)`` runs one module.
+    Returns the per-level logits."""
+    n_enc = len(spec.encoders)
+    skips = []
+    for level in range(n_enc):
+        x = run_level(f"encode{level}", spec.encoders[level], x)
+        if level < n_enc - 1:
+            skips.append(x)
+    results: list = [None] * len(spec.decoders)
+    for level in range(n_enc - 2, -1, -1):
+        x = run_level(f"decode{level}", spec.decoders[level], (skips[level], x))
+        skips[level] = None
+        if spec.heads[level]:
+            results[level] = head(level, spec.heads[level], x)
+        if spec.tails[level]:
+            x = run_level(f"decode_tail{level}", spec.tails[level], x)
+    return results
+
+
 def forward(spec: UNetSpec, params: dict, x: torch.Tensor, *, state: dict | None = None,
             compute_dtype=torch.float32, slab=None, train: bool = False,
             remat: bool = False):
@@ -232,28 +256,59 @@ def forward(spec: UNetSpec, params: dict, x: torch.Tensor, *, state: dict | None
     the per-level logits, each (N, D_l, H_l, W_l, out_count) float32.
     ``remat=True`` checkpoints each level (``_level``)."""
     state = state or {}
-    x = x.to(compute_dtype).permute(0, 4, 1, 2, 3)
 
     def seq(name, layers, x):
         return _level(lambda v: _run_sequential(params, state, name, layers, v, slab, train),
                       x, remat)
 
-    n_enc = len(spec.encoders)
-    skips = []
-    for level in range(n_enc):
-        x = seq(f"encode{level}", spec.encoders[level], x)
-        if level < n_enc - 1:
-            skips.append(x)
-    results: list = [None] * len(spec.decoders)
-    for level in range(n_enc - 2, -1, -1):
-        x = seq(f"decode{level}", spec.decoders[level], (skips[level], x))
-        skips[level] = None
-        if spec.heads[level]:
-            r = seq(f"output{level}", spec.heads[level], x)
-            results[level] = r.permute(0, 2, 3, 4, 1).float().contiguous()
-        if spec.tails[level]:
-            x = seq(f"decode_tail{level}", spec.tails[level], x)
-    return results
+    def head(level, layers, t):
+        return seq(f"output{level}", layers, t).permute(0, 2, 3, 4, 1).float().contiguous()
+
+    return _walk(spec, seq, x.to(compute_dtype).permute(0, 4, 1, 2, 3), head)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' route, and the layers no kernel takes (D, H, W, C)
+# ---------------------------------------------------------------------------
+
+
+def _route(layer: LayerSpec, c: int, dhw, pair: bool = False) -> str | None:
+    """The kernel that runs ``layer`` on a (D, H, W, c) input of spatial
+    shape ``dhw`` in both kernel forwards: "dual", "s1", "entry", "s2",
+    "trans" or "norm" (``ops/conv.py`` ``kernel_takes``), or None for
+    plain PyTorch.  ``pair``: the input is a decoder entry's (skip, up)
+    pair whose halves have one shape, c channels each; only the dual conv
+    takes it whole."""
+    conv3 = layer.kind == "conv" and layer.ks == 3
+    if pair:
+        op = "dual" if conv3 and layer.stride == 1 else None
+    elif conv3 and layer.stride == 2:
+        op = None if any(n % 2 for n in dhw) else "s2"
+    elif conv3:
+        op = "entry" if c == 1 else "s1"
+    else:
+        op = {"conv_trans": "trans", "norm": "norm"}.get(layer.kind)
+    return op if op and K.kernel_takes(op, c, layer.out_c) else None
+
+
+def _plain_layer(layer: LayerSpec, x, w, b):
+    """A layer on a (D, H, W, C) tensor through plain PyTorch (cuDNN on a
+    card), as the JAX package leaves the layers its kernels do not take
+    to XLA."""
+    if layer.kind == "upsample":
+        return x.repeat_interleave(2, 0).repeat_interleave(2, 1).repeat_interleave(2, 2)
+    if layer.kind == "conv":
+        y = F.conv3d(ncdhw(x), w.to(x.dtype), b.to(x.dtype), stride=layer.stride,
+                     padding=(layer.ks - 1) // 2)
+    elif layer.kind == "conv_trans":
+        y = F.conv_transpose3d(ncdhw(x), w.to(x.dtype), b.to(x.dtype), stride=2)
+    elif layer.kind == "max_pool":
+        y = F.max_pool3d(ncdhw(x), 2, 2)
+    elif layer.kind == "norm":
+        y = _instance_norm(ncdhw(x), w, b)
+    else:  # bnorm: the training forward takes batch statistics itself
+        raise ValueError(f"no channels-last plain form of {layer.kind}")
+    return dhwc(y).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +368,8 @@ def norm_affine_from_stats(st, scale, bias, n_vox: int, eps: float = 1e-5):
 
 
 class _Kernels:
-    """The kernels a fused forward calls: the wrappers (the kernel on a
+    """The kernels a fused forward calls, one per ``_route`` name (``norm``:
+    the K2 read of a norm's statistics): the wrappers (the kernel on a
     card, the twin on the CPU), or, for ``plain=True``, the twins
     themselves on any device — the reference a card run is held to."""
 
@@ -328,10 +384,10 @@ class _Kernels:
             self.s2 = lambda x, w, b, prologue=None, want_stats=False: K.conv3_plain(
                 [x], [prologue], w, b, 2, want_stats)
             self.trans = K.conv_trans2x_plain
-            self.sum_sq = channel_sum_sq_plain
+            self.norm = channel_sum_sq_plain
         else:
             self.s1, self.entry, self.dual = K.conv3x3x3_s1, K.conv3x3x3_entry, K.conv3x3x3_dual
-            self.s2, self.trans, self.sum_sq = K.conv3x3x3_s2, K.conv_trans2x, channel_sum_sq
+            self.s2, self.trans, self.norm = K.conv3x3x3_s2, K.conv_trans2x, channel_sum_sq
 
 
 def _run_level_fused(kn: _Kernels, params, mod_name, layers, x):
@@ -346,65 +402,36 @@ def _run_level_fused(kn: _Kernels, params, mod_name, layers, x):
         b = params.get(f"{mod_name}.{i}.b")
         if isinstance(x, tuple):
             a, up = x
-            if (layer.kind == "conv" and layer.ks == 3 and layer.stride == 1
-                    and a.x.shape == up.x.shape and a.c in KERNEL_CHANNELS
-                    and layer.in_c == 2 * a.c and layer.out_c == a.c):
+            if a.x.shape == up.x.shape and _route(layer, a.c, a.x.shape[:3], pair=True):
                 # each half's pending norm rides its own prologue; the stats
                 # of the sum come from one K2 read, as in the JAX package
                 a = a if a.pact in _PRO_ACTS else _materialize(a)
                 up = up if up.pact in _PRO_ACTS else _materialize(up)
                 y = kn.dual(a.x, up.x, w, b, prologue_a=a.prologue(), prologue_b=up.prologue())
                 y = activation(y, layer.act)
-                x = _Act(y, st=kn.sum_sq(y) if next_is_norm(i) else None)
+                x = _Act(y, st=kn.norm(y) if next_is_norm(i) else None)
                 continue
             x = _Act(torch.cat([_materialize(a).x, _materialize(up).x], dim=-1))
         if x.pact not in _PRO_ACTS:
             x = _materialize(x)  # elu: no in-kernel prologue
         stats = next_is_norm(i) and not layer.act
-        d, h, wd, c = x.x.shape
-        if layer.kind == "conv":
-            if layer.ks == 3 and layer.stride == 1 and layer.in_c == layer.out_c == c \
-                    and c in KERNEL_CHANNELS:
-                out = kn.s1(x.x, w, b, prologue=x.prologue(), want_stats=stats)
-                x = _Act(out[0], st=out[1]) if stats else _Act(out)
-            elif layer.ks == 3 and layer.stride == 2 and c in KERNEL_CHANNELS \
-                    and layer.out_c == 2 * c and not (d % 2 or h % 2 or wd % 2):
-                out = kn.s2(x.x, w, b, prologue=x.prologue(), want_stats=stats)
-                x = _Act(out[0], st=out[1]) if stats else _Act(out)
-            elif layer.ks == 3 and layer.stride == 1 and c == 1 and x.pa is None \
-                    and layer.out_c in KERNEL_CHANNELS:
-                out = kn.entry(x.x, w, b, want_stats=stats)
-                x = _Act(out[0], st=out[1]) if stats else _Act(out)
-            else:
+        route = _route(layer, x.c, x.x.shape[:3])
+        if route == "entry":  # K1's entry form takes no prologue
+            out = kn.entry(_materialize(x).x, w, b, want_stats=stats)
+        elif route in ("s1", "s2"):
+            out = getattr(kn, route)(x.x, w, b, prologue=x.prologue(), want_stats=stats)
+        if route in ("entry", "s1", "s2"):
+            x = _Act(out[0], st=out[1]) if stats else _Act(out)
+        elif route == "trans":
+            x = _Act(kn.trans(x.x, w, b, prologue=x.prologue()))
+        elif layer.kind == "norm" and (route or x.st is not None):
+            if x.st is None:
                 xm = _materialize(x).x
-                y = F.conv3d(ncdhw(xm), w.to(xm.dtype), b.to(xm.dtype),
-                             stride=layer.stride, padding=(layer.ks - 1) // 2)
-                x = _Act(dhwc(y).contiguous())
-        elif layer.kind == "conv_trans":
-            if c in KERNEL_CHANNELS and c == 2 * layer.out_c and layer.out_c in KERNEL_CHANNELS:
-                x = _Act(kn.trans(x.x, w, b, prologue=x.prologue()))
-            else:
-                xm = _materialize(x).x
-                y = F.conv_transpose3d(ncdhw(xm), w.to(xm.dtype), b.to(xm.dtype), stride=2)
-                x = _Act(dhwc(y).contiguous())
-        elif layer.kind == "max_pool":
-            x = _Act(dhwc(F.max_pool3d(ncdhw(_materialize(x).x), 2, 2)).contiguous())
-        elif layer.kind == "upsample":
-            xm = _materialize(x).x
-            x = _Act(xm.repeat_interleave(2, 0).repeat_interleave(2, 1)
-                     .repeat_interleave(2, 2))
-        elif layer.kind == "norm":
-            if x.st is None and c in KERNEL_CHANNELS:
-                xm = _materialize(x).x
-                x = _Act(xm, st=kn.sum_sq(xm))
-            if x.st is not None:
-                pa, pb = norm_affine_from_stats(x.st, w, b, d * h * wd)
-                x = _Act(x.x, pa=pa, pb=pb)
-            else:
-                xm = _materialize(x).x
-                x = _Act(dhwc(_instance_norm(ncdhw(xm), w, b)).contiguous())
-        else:  # bnorm: forward_fused routes such specs to the plain forward
-            raise ValueError(f"fused forward does not take {layer.kind}")
+                x = _Act(xm, st=kn.norm(xm))
+            pa, pb = norm_affine_from_stats(x.st, w, b, math.prod(x.x.shape[:3]))
+            x = _Act(x.x, pa=pa, pb=pb)
+        else:
+            x = _Act(_plain_layer(layer, _materialize(x).x, w, b))
         if layer.act:
             if x.pa is not None and x.pact is None and layer.act in ("relu", "leaky_relu"):
                 x = _Act(x.x, pa=x.pa, pb=x.pb, pact=layer.act)
@@ -431,24 +458,16 @@ def forward_fused(spec: UNetSpec, params: dict, x: torch.Tensor, *,
     if not fused_supported(spec) or x.shape[0] != 1:
         return forward(spec, params, x, compute_dtype=compute_dtype)
     kn = _Kernels(plain)
-    t = _Act(x[0].to(compute_dtype).contiguous())
-    n_enc = len(spec.encoders)
-    skips = []
-    for level in range(n_enc):
-        t = _run_level_fused(kn, params, f"encode{level}", spec.encoders[level], t)
-        if level < n_enc - 1:
-            skips.append(t)
-    results: list = [None] * len(spec.decoders)
-    for level in range(n_enc - 2, -1, -1):
-        t = _run_level_fused(kn, params, f"decode{level}", spec.decoders[level],
-                             (skips[level], t))
-        skips[level] = None
-        if spec.heads[level] and (level == 0 or not level0_only):
-            r = _run_level_fused(kn, params, f"output{level}", spec.heads[level], t)
-            results[level] = _materialize(r).x.float().unsqueeze(0)
-        if spec.tails[level]:
-            t = _run_level_fused(kn, params, f"decode_tail{level}", spec.tails[level], t)
-    return results
+
+    def run(name, layers, t):
+        return _run_level_fused(kn, params, name, layers, t)
+
+    def head(level, layers, t):
+        if level and level0_only:
+            return None
+        return _materialize(run(f"output{level}", layers, t)).x.float().unsqueeze(0)
+
+    return _walk(spec, run, _Act(x[0].to(compute_dtype).contiguous()), head)
 
 
 # ---------------------------------------------------------------------------
@@ -457,16 +476,16 @@ def forward_fused(spec: UNetSpec, params: dict, x: torch.Tensor, *,
 #
 # The counterpart of the JAX package's packed forward in training
 # (forward_packed(train=True), that is _run_level_packed(fuse=False)): no
-# deferred norm and no prologue.  Convs and norms at C in {16, 32, 64} go
+# deferred norm and no prologue.  The layers ``_route`` gives a kernel go
 # through the custom-VJP Functions (forward and backward kernels); the
 # C >= 128 levels, the ks1 heads and the other layers run plain PyTorch
 # under autograd, as the JAX package leaves them to XLA (_conv_cv).
 
 
 class _TrainOps:
-    """The layers a training forward calls: the kernels' autograd
-    Functions, or, for ``plain=True``, their twins under plain autograd
-    (the reference a card run is held to)."""
+    """The layers a training forward calls, one per ``_route`` name: the
+    kernels' autograd Functions, or, for ``plain=True``, their twins under
+    plain autograd (the reference a card run is held to)."""
 
     def __init__(self, plain: bool):
         if plain:
@@ -496,44 +515,15 @@ def _run_level_train(ops: _TrainOps, params, mod_name, layers, x):
         b = params.get(f"{mod_name}.{i}.b")
         if isinstance(x, tuple):
             a, up = x
-            if (layer.kind == "conv" and layer.ks == 3 and layer.stride == 1
-                    and a.shape == up.shape and a.shape[-1] in KERNEL_CHANNELS
-                    and layer.in_c == 2 * a.shape[-1] and layer.out_c == a.shape[-1]):
+            if a.shape == up.shape and _route(layer, a.shape[-1], a.shape[:3], pair=True):
                 x = activation_train(ops.dual(a, up, w, b), layer.act)
                 continue
             x = torch.cat([a, up], dim=-1)
-        d, h, wd, c = x.shape
-        if layer.kind == "conv":
-            if layer.ks == 3 and layer.stride == 1 and layer.in_c == layer.out_c == c \
-                    and c in KERNEL_CHANNELS:
-                x = ops.s1(x, w, b)
-            elif layer.ks == 3 and layer.stride == 2 and c in KERNEL_CHANNELS \
-                    and layer.out_c == 2 * c and not (d % 2 or h % 2 or wd % 2):
-                x = ops.s2(x, w, b)
-            elif layer.ks == 3 and layer.stride == 1 and c == 1 \
-                    and layer.out_c in KERNEL_CHANNELS:
-                x = ops.entry(x, w, b)
-            elif layer.ks == 1 and layer.stride == 1:
-                x = _ks1_conv(x, w, b)
-            else:
-                y = F.conv3d(ncdhw(x), w.to(x.dtype), b.to(x.dtype), stride=layer.stride,
-                             padding=(layer.ks - 1) // 2)
-                x = dhwc(y).contiguous()
-        elif layer.kind == "conv_trans":
-            if c in KERNEL_CHANNELS and c == 2 * layer.out_c and layer.out_c in KERNEL_CHANNELS:
-                x = ops.trans(x, w, b)
-            else:
-                y = F.conv_transpose3d(ncdhw(x), w.to(x.dtype), b.to(x.dtype), stride=2)
-                x = dhwc(y).contiguous()
-        elif layer.kind == "max_pool":
-            x = dhwc(F.max_pool3d(ncdhw(x), 2, 2)).contiguous()
-        elif layer.kind == "upsample":
-            x = x.repeat_interleave(2, 0).repeat_interleave(2, 1).repeat_interleave(2, 2)
-        elif layer.kind == "norm":
-            if c in KERNEL_CHANNELS:
-                x = ops.norm(x, w, b)
-            else:
-                x = dhwc(_instance_norm(ncdhw(x), w, b)).contiguous()
+        route = _route(layer, x.shape[-1], x.shape[:3])
+        if route:
+            x = getattr(ops, route)(x, w, b)
+        elif layer.kind == "conv" and layer.ks == 1:
+            x = _ks1_conv(x, w, b)
         elif layer.kind == "bnorm":
             # batch statistics, as the JAX package trains (its running
             # statistics are not updated by the train step either)
@@ -541,6 +531,8 @@ def _run_level_train(ops: _TrainOps, params, mod_name, layers, x):
             mean = xf.mean(dim=(0, 1, 2))
             var = (xf - mean).square().mean(dim=(0, 1, 2))
             x = _batch_norm(ncdhw(x), w, b, mean, var).permute(0, 2, 3, 4, 1)[0].contiguous()
+        else:
+            x = _plain_layer(layer, x, w, b)
         x = activation_train(x, layer.act)
     return x
 
@@ -559,33 +551,19 @@ def forward_train(spec: UNetSpec, params: dict, x: torch.Tensor, *,
         raise ValueError(f"forward_train takes one item, got a batch of {x.shape[0]}")
     ops = _TrainOps(plain)
 
-    def level_fn(mod_name, layers, x):
-        return _level(lambda v: _run_level_train(ops, params, mod_name, layers, v), x, remat)
+    def run(name, layers, x):
+        return _level(lambda v: _run_level_train(ops, params, name, layers, v), x, remat)
 
-    t = x[0].to(compute_dtype).contiguous()
-    n_enc = len(spec.encoders)
-    skips = []
-    for level in range(n_enc):
-        t = level_fn(f"encode{level}", spec.encoders[level], t)
-        if level < n_enc - 1:
-            skips.append(t)
-    results: list = [None] * len(spec.decoders)
-    for level in range(n_enc - 2, -1, -1):
-        t = level_fn(f"decode{level}", spec.decoders[level], (skips[level], t))
-        skips[level] = None
-        head = spec.heads[level]
-        if level == 0 and len(head) == 1 and head[0].kind == "conv" and head[0].ks == 1 \
-                and head[0].act is None:
+    def head(level, layers, t):
+        if level == 0 and len(layers) == 1 and layers[0].kind == "conv" and layers[0].ks == 1 \
+                and layers[0].act is None:
             w, b = params["output0.0.w"], params["output0.0.b"]
             planes = w.reshape(w.shape[0], -1).to(t.dtype) @ t.reshape(-1, t.shape[-1]).T
             planes = planes + b.to(t.dtype)[:, None]
-            results[0] = ChannelLeading(planes.float().reshape(w.shape[0], 1, *t.shape[:3]))
-        elif head:
-            r = level_fn(f"output{level}", head, t)
-            results[level] = r.float().unsqueeze(0)
-        if spec.tails[level]:
-            t = level_fn(f"decode_tail{level}", spec.tails[level], t)
-    return results
+            return ChannelLeading(planes.float().reshape(w.shape[0], 1, *t.shape[:3]))
+        return run(f"output{level}", layers, t).float().unsqueeze(0)
+
+    return _walk(spec, run, x[0].to(compute_dtype).contiguous(), head)
 
 
 # ---------------------------------------------------------------------------

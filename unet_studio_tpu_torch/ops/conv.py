@@ -23,11 +23,11 @@ Each wrapper runs its twin when the tensor lies on the CPU and launches
 its CUDA kernel when it lies on a card; there it raises on what the
 kernel does not take.  The route goes by dtype: bf16 K1 (all four uses),
 K3, K5, K6 and K7 run on the tensor cores (``csrc/conv_tc.cu``, operands
-laid out by ``ops/tc_layout.py``) for the channel counts of
-``KERNEL_CHANNELS``, ``tc_layout.DW_CI``/``DW_CO``, ``TC_S2`` and
-``TC_S2DX``, and so do K4, K8 and K9 (``csrc/trans_tc.cu``) for ``TC_TRANS``;
-f32 keeps the FMA kernels (``csrc/conv.cu``, ``csrc/conv_bwd.cu``), since
-f32 on the tensor cores would be TF32.
+laid out by ``ops/tc_layout.py``), and so do K4, K8 and K9
+(``csrc/trans_tc.cu``), for the channel counts ``kernel_takes`` accepts
+(bf16 K5 for ``tc_layout.DW_CI``/``DW_CO``); f32 keeps the FMA kernels
+(``csrc/conv.cu``, ``csrc/conv_bwd.cu``), since f32 on the tensor cores
+would be TF32.
 ``<wrapper>.launches`` counts the kernel launches, and
 ``<wrapper>.tc_launches`` those of them on the tensor-core route.
 
@@ -49,11 +49,31 @@ from . import _cuda, tc_layout
 # C of the levels the kernels serve; bf16 K1 has a tensor-core instance
 # for each (C -> C per input, and the entry's 1 -> C)
 KERNEL_CHANNELS = (16, 32, 64)
-TC_S2DX = ((16, 32), (32, 64), (64, 128))  # bf16 K7: (dx channels, g channels)
-TC_S2 = tc_layout.S2_PAIRS  # bf16 K3 and K6: (Ci, Co)
-TC_TRANS = tc_layout.TRANS_PAIRS  # bf16 K4, K8 and K9: the transposed conv's (Ci, Co)
 # kinds of csrc/conv_tc.cu unet_conv3_tc_rows
 _KIND_K1, _KIND_DUAL, _KIND_ENTRY, _KIND_K3 = 0, 1, 2, 3
+
+
+def kernel_takes(op: str, ci: int, co: int) -> bool:
+    """Whether the kernels take a layer of kind ``op`` from ``ci`` to ``co``
+    channels: "s1" and "dual" (``ci`` per half) K1, with K1 as dx and K5
+    in the backward; "entry" K1's 1 -> C form with K5; "s2" K3, K6 and
+    K7; "trans" K4, K8 and K9; "norm" K2's reads.  The one table of the
+    shapes the kernels serve: in bf16 each conv of it has a tensor-core
+    instance, and the conv wrappers raise outside it (bf16 K5 alone takes
+    more: ``tc_layout.DW_CI`` x ``DW_CO``)."""
+    if op in ("s1", "dual"):
+        return ci == co in KERNEL_CHANNELS
+    if op == "entry":
+        return ci == 1 and co in KERNEL_CHANNELS
+    if op == "norm":
+        return ci in KERNEL_CHANNELS
+    return (ci, co) in {"s2": tc_layout.S2_PAIRS, "trans": tc_layout.TRANS_PAIRS}[op]
+
+
+def _need_tc(name: str, op: str, ci: int, co: int, dtype) -> None:
+    """bf16 raises outside ``kernel_takes``; f32 keeps the FMA kernels."""
+    if dtype == torch.bfloat16 and not kernel_takes(op, ci, co):
+        raise ValueError(f"{name}: bf16 {op} has no tensor-core kernel for Ci={ci}, Co={co}")
 
 
 def apply_prologue(x: torch.Tensor, prologue) -> torch.Tensor:
@@ -215,14 +235,9 @@ def _launch_conv3(xs, prologues, w, b, stride: int, want_stats: bool, name: str)
         raise ValueError(f"{name}: stride 2 needs even D, H, W, got {(d, h, wd)}")
     dt = xa.dtype
     tc = dt == torch.bfloat16
-    if tc and stride == 2 and (len(xs) != 1 or (ci, co) not in TC_S2):
-        raise ValueError(f"{name}: bf16 stride-2 conv has no tensor-core kernel for Ci={ci}, "
-                         f"Co={co} (takes {TC_S2})")
-    if tc and stride == 1 and ci == 1 and co not in KERNEL_CHANNELS:
-        raise ValueError(f"{name}: bf16 entry conv has no tensor-core kernel for Co={co}")
-    if tc and stride == 1 and ci != 1 and (ci != co or ci not in KERNEL_CHANNELS):
-        raise ValueError(f"{name}: bf16 conv has no tensor-core kernel for Ci={ci}, Co={co} "
-                         f"(takes Ci = Co in {KERNEL_CHANNELS} per input)")
+    _need_tc(name, "s2" if stride == 2 else "entry" if ci == 1 else "s1", ci, co, dt)
+    if tc and stride == 2 and len(xs) != 1:
+        raise ValueError(f"{name}: bf16 stride-2 conv takes one input")
     bias = b.detach().to(dtype=torch.float32).contiguous()
     y = torch.empty((d // stride, h // stride, wd // stride, co), dtype=dt, device=xa.device)
     kind = (_KIND_K3 if stride == 2 else _KIND_ENTRY if ci == 1
@@ -320,8 +335,8 @@ def conv3x3x3_dual(xa, xb, w, b, *, prologue_a=None, prologue_b=None):
 def conv3x3x3_s2(x, w, b, *, prologue=None, want_stats=False):
     """K3, C->2C: 3x3x3 stride-2 pad-1 conv + bias on even D, H, W.
     Replaces unet_studio_tpu/ops/packed.py ``_s2_fwd_kernel``
-    (``conv_s2_down``).  bf16 runs on the tensor cores for (Ci, Co) in
-    ``TC_S2``."""
+    (``conv_s2_down``).  bf16 runs on the tensor cores for the (Ci, Co)
+    of ``kernel_takes("s2", ...)``."""
     if x.device.type == "cpu":
         return conv3_plain([x], [prologue], w, b, 2, want_stats)
     out = _launch_conv3([x], [prologue], w, b, 2, want_stats, "conv3x3x3_s2")
@@ -332,7 +347,7 @@ def conv3x3x3_s2(x, w, b, *, prologue=None, want_stats=False):
 def conv_trans2x(x, w, b, *, prologue=None):
     """K4: ConvTranspose3d(ks2, stride2) 2C->C + bias.  Replaces
     unet_studio_tpu/ops/packed.py ``_trans_kernel`` (``conv_trans2x_up``).
-    bf16 runs on the tensor cores for (Ci, Co) in ``TC_TRANS``."""
+    bf16 runs on the tensor cores for ``kernel_takes("trans", Ci, Co)``."""
     if x.device.type == "cpu":
         return conv_trans2x_plain(x, w, b, prologue)
     d, h, wd, ci = x.shape
@@ -343,9 +358,7 @@ def conv_trans2x(x, w, b, *, prologue=None):
                          "(Ci and Co must be multiples of 16)")
     dt = x.dtype
     tc = dt == torch.bfloat16
-    if tc and (ci, co) not in TC_TRANS:
-        raise ValueError(f"conv_trans2x: bf16 has no tensor-core kernel for Ci={ci}, Co={co} "
-                         f"(takes {TC_TRANS})")
+    _need_tc("conv_trans2x", "trans", ci, co, dt)
     wdt = w.detach().to(dtype=dt)
     bias = b.detach().to(dtype=torch.float32).contiguous()
     y = torch.empty((2 * d, 2 * h, 2 * wd, co), dtype=dt, device=x.device)
@@ -429,9 +442,8 @@ def _launch_dw_tc(x, g, stride: int, name: str):
     if stride == 1 and (ci not in tc_layout.DW_CI or co not in tc_layout.DW_CO):
         raise ValueError(f"{name}: bf16 dW has no tensor-core kernel for Ci={ci}, Co={co} "
                          f"(takes Ci in {tc_layout.DW_CI}, Co in {tc_layout.DW_CO})")
-    if stride == 2 and (ci, co) not in TC_S2:
-        raise ValueError(f"{name}: bf16 stride-2 dW has no tensor-core kernel for Ci={ci}, "
-                         f"Co={co} (takes {TC_S2})")
+    if stride == 2:
+        _need_tc(name, "s2", ci, co, g.dtype)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     nblk = tc_layout.dw_blocks(g.shape[:3], ci, co, n_sm, stride)
     part = torch.empty(tc_layout.dw_partial_shape(nblk, ci, co), dtype=torch.float32,
@@ -468,7 +480,7 @@ def conv3x3x3_s2_dw(x, g):
     stride-2 pad-1 conv with input ``x`` (D, H, W, Ci) and output gradient
     ``g`` (D/2, H/2, W/2, Co).  Replaces unet_studio_tpu/ops/packed.py
     ``_s2_dw_kernel`` (in ``conv_s2_p``'s VJP).  bf16 runs on the tensor
-    cores for (Ci, Co) in ``TC_S2``."""
+    cores for the (Ci, Co) of ``kernel_takes("s2", ...)``."""
     if x.device.type == "cpu":
         out = conv_dw_plain(x, g, 3, 2, 1)
     else:
@@ -489,9 +501,7 @@ def _launch_trans_dw_tc(x, g):
     if g.dtype != torch.bfloat16 or tuple(g.shape[:3]) != tuple(2 * n for n in x.shape[:3]):
         raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} and g {tuple(g.shape)} "
                          f"{g.dtype} must be bf16 volumes, g twice x's size")
-    if (ci, co) not in TC_TRANS:
-        raise ValueError(f"{name}: bf16 has no tensor-core kernel for Ci={ci}, Co={co} "
-                         f"(takes {TC_TRANS})")
+    _need_tc(name, "trans", ci, co, g.dtype)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     nblk = tc_layout.trans_dw_blocks(x.shape[:3], ci, co, n_sm)
     part = torch.empty(tc_layout.trans_dw_partial_shape(nblk, ci, co), dtype=torch.float32,
@@ -510,9 +520,9 @@ def conv_trans2x_dw(x, g):
     transposed conv with input ``x`` (D, H, W, Ci) and output gradient
     ``g`` (2D, 2H, 2W, Co).  Replaces unet_studio_tpu/ops/packed.py
     ``_trans_dw_kernel`` (in ``conv_trans2x_p``'s VJP).  bf16 runs on the
-    tensor cores for (Ci, Co) in ``TC_TRANS``, giving (tap, Ci, Co); f32
-    and the twin run the dW kernel with the roles of x and g swapped,
-    giving (tap, Co, Ci)."""
+    tensor cores for the (Ci, Co) of ``kernel_takes("trans", ...)``,
+    giving (tap, Ci, Co); f32 and the twin run the dW kernel with the
+    roles of x and g swapped, giving (tap, Co, Ci)."""
     ci, co = x.shape[-1], g.shape[-1]
     if x.device.type == "cpu":
         out = conv_dw_plain(g, x, 2, 2, 0)
@@ -540,9 +550,7 @@ def conv3x3x3_s2_dx(g, w):
         raise ValueError(f"conv3x3x3_s2_dx: weight {tuple(w.shape)} for Co={co} "
                          "(Ci and Co must be multiples of 16)")
     dt = g.dtype
-    if dt == torch.bfloat16 and (ci, co) not in TC_S2DX:
-        raise ValueError(f"conv3x3x3_s2_dx: bf16 has no tensor-core kernel for Ci={ci}, "
-                         f"Co={co} (takes {TC_S2DX})")
+    _need_tc("conv3x3x3_s2_dx", "s2", ci, co, dt)
     wdt = w.detach().to(dtype=dt)
     dx = torch.empty((2 * od, 2 * oh, 2 * ow, ci), dtype=dt, device=g.device)
     p = _cuda.ptr
@@ -566,7 +574,7 @@ def conv_trans2x_dx(g, w):
     ks2/stride-2 transposed conv with weight ``w`` (Ci, Co, 2, 2, 2),
     from ``g`` (2D, 2H, 2W, Co).  Replaces unet_studio_tpu/ops/packed.py
     ``_trans_dx_kernel`` (in ``conv_trans2x_p``'s VJP).  bf16 runs on the
-    tensor cores for (Ci, Co) in ``TC_TRANS``."""
+    tensor cores for the (Ci, Co) of ``kernel_takes("trans", ...)``."""
     if g.device.type == "cpu":
         return conv_trans2x_dx_plain(g, w)
     d2, h2, w2, co = g.shape
@@ -578,9 +586,7 @@ def conv_trans2x_dx(g, w):
         raise ValueError(f"conv_trans2x_dx: weight {tuple(w.shape)} for Co={co} "
                          "(Ci and Co must be multiples of 16)")
     dt = g.dtype
-    if dt == torch.bfloat16 and (ci, co) not in TC_TRANS:
-        raise ValueError(f"conv_trans2x_dx: bf16 has no tensor-core kernel for Ci={ci}, "
-                         f"Co={co} (takes {TC_TRANS})")
+    _need_tc("conv_trans2x_dx", "trans", ci, co, dt)
     wdt = w.detach().to(dtype=dt)
     dx = torch.empty((d2 // 2, h2 // 2, w2 // 2, ci), dtype=dt, device=g.device)
     p = _cuda.ptr
