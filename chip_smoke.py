@@ -26,7 +26,9 @@ GPU and check it, phase by phase.  Any failed phase exits non-zero.
    ``EvaluateEngine.run``, each stage timed alone, and the device's busy
    share of ``infer``.
 5. Each backward kernel (K1 as dx, K5-K9, K2 ``norm_bwd``) against its
-   twin at the flagship shapes, in bf16 and in f32, with its times and
+   twin at the flagship shapes, in bf16 and in f32, and the training norm
+   + leaky ReLU's three kernels (``norm_act``, K2 ``norm_act_bwd``,
+   ``norm_act_dx``) bit for bit against theirs, with its times and
    bound as in phase 2 (K1 dx, K5, K6, K7, K8 and K9 in bf16 on the
    tensor cores; K5, K6, K8 and K9 also per level (and K5 at the entry),
    ``tc_ms_c*``, ``tc_ms_entry``, beside ``bound_ms_*``, their own device
@@ -205,8 +207,10 @@ STEP_F32_TOL = 1e-3
 STEP_BF16_LOSS_TOL = 2e-2
 STEP_BF16_GRAD_TOL = 0.2
 # K2 modes the JAX package defines and never calls: ported, timed and
-# checked, but no path launches them
-OFF_PATH = ("channel_sum", "channel_sqdiff")
+# checked, but no path launches them; and norm_bwd, which a norm at the
+# kernels' widths launches only without a leaky ReLU (relu, elu or no
+# activation), and the networks here have none
+OFF_PATH = ("channel_sum", "channel_sqdiff", "norm_bwd_sums")
 # QC in bf16 against QC in f32 on the same pair: the overall wrong ratio
 # (absolute), and each class's wrong count over that class's voxels
 QC_RATIO_TOL = 0.01
@@ -645,6 +649,55 @@ def phase5_backward_kernels(records, record, rnd, nvox, shapes) -> None:
             del x, g
     record("norm_bwd_sums", "unet_studio_tpu_torch/csrc/reduce.cu",
            "unet_studio_tpu/ops/packed.py:1292", R.norm_bwd_sums, errs, *timing, F32_FLOPS)
+
+    # the training norm + leaky ReLU's kernels (ops/norm.py): the forward
+    # pass and the backward's apply bit for bit their twins on the card (the
+    # torch composition they replace), K2 norm_act_bwd bit for bit K2
+    # norm_bwd on the materialised leaky ReLU gradient and within SUM_TOL
+    # of its twin (another order of the sums); timed at C=16 in bf16
+    from unet_studio_tpu_torch.ops import norm as N
+
+    errs = {name: {} for name in ("norm_act", "norm_act_bwd_sums", "norm_act_dx")}
+    timings = {}
+    for dims, c in ((S0, 16), (S1, 32), (S2, 64)):
+        for dtype, _, tag in dtypes:
+            x = rnd((*dims, c), dtype, scale=2.0) + 0.5
+            g, s, b = rnd((*dims, c), dtype), rnd(c) + 1.0, rnd(c)
+            n = nvox(dims)
+            mean, inv = N.norm_stats(R.channel_sum_sq(x), n)
+            gp = torch.where(N.norm_act_plain(x, s, b, mean, inv, "leaky_relu") >= 0, g, g * 0.01)
+            sums = N.norm_act_bwd_sums(g, x, mean, inv, s, b)
+            e = rel_err(sums, N.norm_act_bwd_sums_plain(g, x, mean, inv, s, b))
+            require(e < SUM_TOL, f"norm_act_bwd_sums C={c} {tag}: err {e}")
+            errs["norm_act_bwd_sums"][f"{tag}_rel_c{c}"] = e
+            means = sums / n
+            act_plain = lambda: N.norm_act_plain(x, s, b, mean, inv, "leaky_relu")  # noqa: E731
+            dx_plain = lambda: N.norm_act_dx_plain(  # noqa: E731
+                g, x, s, b, mean, inv, means, "leaky_relu")
+            # name: (kernel, its bitwise reference, its twin, bytes per voxel and channel)
+            cases = {
+                "norm_act": (lambda: N.norm_act(x, s, b, mean, inv, "leaky_relu"), act_plain,
+                             act_plain, 4),
+                "norm_act_bwd_sums": (lambda: N.norm_act_bwd_sums(g, x, mean, inv, s, b),
+                                      lambda: R.norm_bwd_sums(gp, x, mean, inv),
+                                      lambda: N.norm_act_bwd_sums_plain(g, x, mean, inv, s, b), 4),
+                "norm_act_dx": (lambda: N.norm_act_dx(g, x, s, b, mean, inv, means, "leaky_relu"),
+                                dx_plain, dx_plain, 6),
+            }
+            for name, (fn, ref, plain, per_elem) in cases.items():
+                require(torch.equal(fn(), ref()), f"{name} C={c} {tag}: not bitwise its reference")
+                errs[name][f"{tag}_bitwise_c{c}"] = True
+                if c == 16 and dtype == torch.bfloat16:
+                    timings[name] = (timed_ms(fn), timed_ms(plain), None, per_elem * c * n,
+                                     8 * c * n)
+            del x, g, gp
+    for name, wrapper, replaces in (
+            ("norm_act", N.norm_act, "none (XLA fuses it in JAX)"),
+            ("norm_act_bwd_sums", N.norm_act_bwd_sums,
+             "unet_studio_tpu/ops/packed.py:1292 on XLA's leaky ReLU gradient"),
+            ("norm_act_dx", N.norm_act_dx, "none (XLA fuses it in JAX)")):
+        record(name, "unet_studio_tpu_torch/csrc/reduce.cu", replaces, wrapper, errs[name],
+               *timings[name], F32_FLOPS)
     torch.cuda.empty_cache()
 
 
@@ -1884,7 +1937,7 @@ def cards_check(card: str, arch: str, dev_type: str = "cuda", n: int | None = No
 # the forward kernels: the ones an evaluate launches, and the ones a
 # checkpointed level reruns in the backward
 FORWARD_KERNELS = ("conv3x3x3_s1", "conv3x3x3_entry", "conv3x3x3_dual", "conv3x3x3_s2",
-                   "conv_trans2x", "channel_sum_sq")
+                   "conv_trans2x", "channel_sum_sq", "norm_act")
 # phase 11: the remat step's f32 gradients against the step without it,
 # each parameter's error over its largest value (the same kernels in the
 # same fixed order, so 0 is expected)

@@ -3,7 +3,9 @@ PyTorch twins on the card, at small shapes with odd sizes; bf16 K1, K3,
 K4, K5, K6, K7, K8 and K9 run on the tensor-core route (``test_tc_*`` add
 whole-tile shapes); K2's modes, the weight gradients, the convs' stats and
 K8's dx are bitwise repeatable, K2 on two streams at once too, and need no
-zeroed output; the warp takes uint8, int and float labels alike; QC's
+zeroed output; the training norm + leaky ReLU's Function gives the bits
+of the two Functions it replaces; the warp takes uint8, int and float
+labels alike; QC's
 device counts equal a host recount, and the atlas resample's bits the
 CPU's; the training forward with remat gives the gradients without it,
 each forward kernel launched once more.  These tests need an NVIDIA GPU and skip without one; run them
@@ -21,7 +23,12 @@ import pytest
 import torch
 
 from unet_studio_tpu_torch.ops import conv as K
-from unet_studio_tpu_torch.ops.norm import InstanceNormTrain, instance_norm_train_plain
+from unet_studio_tpu_torch.ops import norm as N
+from unet_studio_tpu_torch.ops.norm import (
+    InstanceNormActTrain,
+    InstanceNormTrain,
+    instance_norm_train_plain,
+)
 from unet_studio_tpu_torch.ops import reduce as R
 from unet_studio_tpu_torch.ops import resample as RS
 from unet_studio_tpu_torch.ops import warp as W
@@ -200,18 +207,18 @@ def test_norm_bwd_sums(dev, dtype, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["s1", "entry", "dual", "s2", "trans", "norm"])
+@pytest.mark.parametrize("kind", ["s1", "entry", "dual", "s2", "trans", "norm", "norm_act"])
 def test_functions_on_the_card(dev, dtype, kind):
     """Each autograd Function (its forward and backward kernels) against
     autograd through its forward twin.  f32: 1e-4 (the norm's backward
     formula against autograd's chain rule, both in f32).  bf16: the
-    conv Functions 1e-2; the norm 4e-2, since its backward runs its
+    conv Functions 1e-2; the norms 4e-2, since their backward runs its
     elementwise steps in bf16, as the JAX VJP does, where the twin's
     autograd runs the statistics' branch in f32."""
     rng = np.random.default_rng(3)
     c, dims = 16, (6, 10, 14)
     tol = F32_TOL * 10 if dtype == torch.float32 else BF16_TOL
-    if kind == "norm" and dtype == torch.bfloat16:
+    if kind.startswith("norm") and dtype == torch.bfloat16:
         tol = 4e-2
 
     def r(shape, scale=1.0, dt=torch.float32):
@@ -233,9 +240,15 @@ def test_functions_on_the_card(dev, dtype, kind):
     elif kind == "trans":
         args = [r((3, 5, 7, 2 * c), dt=dtype), r((2 * c, c, 2, 2, 2), 0.2), r(c)]
         fn, plain = K.ConvTrans2xFn.apply, K.conv_trans2x_plain
+    elif kind == "norm":
+        args = [r((*dims, c), 2.0, dtype) + 0.5, r(c) + 1.0, r(c)]
+        fn = lambda x, s, b: InstanceNormActTrain.apply(x, s, b, None)  # noqa: E731
+        plain = instance_norm_train_plain
     else:
         args = [r((*dims, c), 2.0, dtype) + 0.5, r(c) + 1.0, r(c)]
-        fn, plain = InstanceNormTrain.apply, instance_norm_train_plain
+        fn = lambda x, s, b: InstanceNormActTrain.apply(x, s, b, "leaky_relu")  # noqa: E731
+        plain = lambda x, s, b: K.activation_train(  # noqa: E731
+            instance_norm_train_plain(x, s, b), "leaky_relu")
     mine = [a.clone().requires_grad_(kind != "entry" or i > 0) for i, a in enumerate(args)]
     ref = [a.clone().requires_grad_(kind != "entry" or i > 0) for i, a in enumerate(args)]
     y = fn(*mine)
@@ -248,6 +261,52 @@ def test_functions_on_the_card(dev, dtype, kind):
         if a.requires_grad:
             assert a.grad.dtype == b.grad.dtype
             assert _rel(a.grad, b.grad) < tol
+
+
+def _norm_act_case(dev, dtype, c, dims, seed):
+    """x, scale, bias and g for the norm + leaky ReLU, with exact zeros:
+    an x slab and a g slab of zeros; channel 3 all zero with zero bias,
+    so that its y is exactly 0 (the leaky ReLU's gradient there is 1);
+    channel 5's scale tiny, so that x * a is subnormal or 0."""
+    rng = np.random.default_rng(seed)
+    x = _t(rng, (*dims, c), dev, dtype, 2.0) + 0.5
+    x[0] = 0
+    x[..., 3] = 0
+    scale, bias = _t(rng, c, dev) + 1.0, _t(rng, c, dev)
+    bias[3] = 0
+    scale[5] = 1e-38
+    g = _t(rng, (*dims, c), dev, dtype)
+    g[-1] = 0
+    return x, scale, bias, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["leaky_relu", None])
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("dims", [(96, 112, 96), (48, 56, 48), (5, 7, 9)])
+def test_norm_act_bitwise(dev, dtype, act, c, dims):
+    """``InstanceNormActTrain`` against ``InstanceNormTrain`` then
+    ``_LeakyReLU`` (or nothing): y, dx, dscale and dbias bit for bit, at
+    the level-1 and level-2 sizes of the 192x224x192 grid and one odd
+    shape; and K2 ``norm_act_bwd`` bit for bit ``norm_bwd`` of the
+    materialised leaky ReLU gradient."""
+    x, scale, bias, g = _norm_act_case(dev, dtype, c, dims, c + dims[0])
+    mine = [v.clone().requires_grad_() for v in (x, scale, bias)]
+    ref = [v.clone().requires_grad_() for v in (x, scale, bias)]
+    y = InstanceNormActTrain.apply(*mine, act)
+    yn = InstanceNormTrain.apply(*ref)
+    yr = K._LeakyReLU.apply(yn) if act else yn
+    y.backward(g)
+    yr.backward(g)
+    assert torch.equal(y, yr)
+    for a, b in zip(mine, ref):
+        assert a.grad.dtype == b.grad.dtype and torch.equal(a.grad, b.grad)
+    if act:
+        n = x.numel() // c
+        mean, inv = N.norm_stats(R.channel_sum_sq(x), n)
+        gp = torch.where(yr.detach() >= 0, g, g * 0.01)
+        assert torch.equal(N.norm_act_bwd_sums(g, x, mean, inv, scale, bias),
+                           R.norm_bwd_sums(gp, x, mean, inv))
 
 
 @pytest.mark.parametrize("c", [16, 32, 64])
@@ -518,11 +577,13 @@ def _poisoned(fn, rows: int, c: int):
 @pytest.mark.parametrize("c,dims", [(16, (5, 7, 9)), (64, (6, 10, 14)), (128, (3, 5, 7)),
                                     (16, (96, 112, 96))])
 def test_k2_modes_repeatable(dev, dtype, c, dims):
-    """K2 sum, sum_sq, sqdiff and norm_bwd against their twins, bitwise the
-    same over two runs, into an output that was not zeroed."""
+    """K2 sum, sum_sq, sqdiff, norm_bwd and norm_act_bwd against their
+    twins, bitwise the same over two runs, into an output that was not
+    zeroed."""
     rng = np.random.default_rng(c + len(dims))
     x = _t(rng, (*dims, c), dev, dtype) + 0.5
     g = (0.5 * x.float() + _t(rng, (*dims, c), dev) + 0.25).to(dtype)
+    scale, bias = _t(rng, c, dev) + 1.0, _t(rng, c, dev)
     n = x.numel() // c
     st = channel_sum_sq_plain(x)
     mean = st[0] / n
@@ -533,6 +594,8 @@ def test_k2_modes_repeatable(dev, dtype, c, dims):
         (1, lambda: R.channel_sqdiff(x, mean), lambda: R.channel_sqdiff_plain(x, mean)),
         (2, lambda: R.norm_bwd_sums(g, x, mean, inv),
          lambda: R.norm_bwd_sums_plain(g, x, mean, inv)),
+        (2, lambda: N.norm_act_bwd_sums(g, x, mean, inv, scale, bias),
+         lambda: N.norm_act_bwd_sums_plain(g, x, mean, inv, scale, bias)),
     )
     for rows, fn, plain in cases:
         first = _poisoned(fn, rows, c)
@@ -799,8 +862,8 @@ def test_remat_train_forward(dev, dtype):
     x = torch.from_numpy(rng.random((1, 16, 24, 32, 1), np.float32)).to(dev)
     lab = torch.from_numpy(rng.integers(0, 3, (1, 16, 24, 32))).to(dev)
     forward = (K.conv3x3x3_s1, K.conv3x3x3_entry, K.conv3x3x3_dual, K.conv3x3x3_s2,
-               K.conv_trans2x, R.channel_sum_sq)
-    wrappers = (*K.WRAPPERS, *R.WRAPPERS, *W.WRAPPERS)
+               K.conv_trans2x, R.channel_sum_sq, N.norm_act)
+    wrappers = (*K.WRAPPERS, *R.WRAPPERS, *N.WRAPPERS, *W.WRAPPERS)
     out = {}
     for remat in (False, True):
         for w in wrappers:

@@ -17,6 +17,7 @@ from unet_studio_tpu_torch.engine.train import TrainEngine, TrainParam, build_tr
 from unet_studio_tpu_torch.models.serialize import load_model
 from unet_studio_tpu_torch.models.unet3d import UNet3d
 from unet_studio_tpu_torch.ops import conv as K
+from unet_studio_tpu_torch.ops import norm as N
 from unet_studio_tpu_torch.ops import warp as W
 from unet_studio_tpu_torch.ops.reduce import (
     channel_sqdiff,
@@ -109,6 +110,9 @@ def test_wrappers_take_no_other_device():
         (K.conv_trans2x_dx, (x, torch.empty((32, 16, 2, 2, 2), device="meta"))),
         (K.conv_trans2x_dw, (x2, x)),
         (norm_bwd_sums, (x, x, b, b)),
+        (N.norm_act_bwd_sums, (x, x, b, b, b, b)),
+        (N.norm_act, (x, b, b, b, b, "leaky_relu")),
+        (N.norm_act_dx, (x, x, b, b, b, b, torch.empty((2, 16), device="meta"), "leaky_relu")),
         (channel_sum, (x,)),
         (channel_sqdiff, (x, b)),
         (volume_max, (x,)),
@@ -118,7 +122,7 @@ def test_wrappers_take_no_other_device():
     for fn, args in calls:
         with pytest.raises(ValueError, match="expected cuda or cpu"):
             fn(*args)
-    assert all(fn.launches == 0 for fn in (*K.WRAPPERS, *W.WRAPPERS))
+    assert all(fn.launches == 0 for fn in (*K.WRAPPERS, *N.WRAPPERS, *W.WRAPPERS))
 
 
 def test_ui_needs_a_card_or_cpu_request(monkeypatch):

@@ -10,6 +10,12 @@
    Tolerance: max-abs error over the reference's max-abs < 1e-4 (f32).
 2. Each Function against plain autograd through its forward twin, and
    the training leaky ReLU's gradient at 0.
+3. ``InstanceNormActTrain`` against the two Functions it replaces
+   (``InstanceNormTrain``, then ``_LeakyReLU`` or nothing), bit for bit,
+   and the training forward's count of the norms it takes: a traced
+   ``forward_train`` + backward counts ``norm_act.fused`` for each norm
+   ``_route`` gives the kernels (with leaky ReLU or no activation) and
+   ``norm_act.plain`` for every other.
 
 Interpret-mode Pallas is unrolled into large XLA programs whose compile
 dominates its run time; each reference runs under ``jax.jit`` compiled at
@@ -18,6 +24,9 @@ emitters, which cuts that compile to a fraction and computes the same
 f32 arithmetic.  Inputs come from a seeded numpy generator.
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -25,11 +34,24 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch.profiler import ProfilerActivity, profile
+
 from unet_studio_tpu.ops import packed as P
 from unet_studio_tpu.ops import pallas_conv as PC
+from unet_studio_tpu_torch.models import unet3d as T
+from unet_studio_tpu_torch.models.dsl import default_architecture, parse_architecture
 from unet_studio_tpu_torch.ops import conv as K
-from unet_studio_tpu_torch.ops.norm import InstanceNormTrain, instance_norm_train_plain
+from unet_studio_tpu_torch.ops import norm as N
+from unet_studio_tpu_torch.ops import reduce as R
+from unet_studio_tpu_torch.ops.norm import (
+    NORM_ACTS,
+    InstanceNormActTrain,
+    InstanceNormTrain,
+    instance_norm_train_plain,
+)
 from unet_studio_tpu_torch.ops.reduce import norm_bwd_sums
+from unet_studio_tpu_torch.utils import profiling
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True,
                 "xla_cpu_use_fusion_emitters": False}
@@ -169,8 +191,8 @@ def test_instance_norm_vjp_and_norm_bwd_sums():
         ref, P.pack(jnp.asarray(x)), jnp.asarray(scale), jnp.asarray(bias),
         P.pack(jnp.asarray(g)), jnp.asarray(np.tile(mean, 128 // c)),
         jnp.asarray(np.tile(inv, 128 // c)))
-    _, (dx, dst, dbt) = _port_grads(InstanceNormTrain.apply, [_t(x, True), _t(scale, True),
-                                                              _t(bias, True)], g)
+    norm = lambda x, s, b: InstanceNormActTrain.apply(x, s, b, None)  # noqa: E731
+    _, (dx, dst, dbt) = _port_grads(norm, [_t(x, True), _t(scale, True), _t(bias, True)], g)
     assert _rel(dx, P.unpack(dx3, (*dims, c))) < 1e-4
     assert _rel(dst, ds) < 1e-4
     assert _rel(dbt, db) < 1e-4
@@ -192,11 +214,12 @@ def _plain_vs_fn(fn, plain, arrays, g, grad_mask):
             assert _rel(a.grad, r.grad.numpy()) < 1e-5
 
 
-@pytest.mark.parametrize("kind", ["s1", "entry", "dual", "s2", "trans", "norm"])
+@pytest.mark.parametrize("kind", ["s1", "entry", "dual", "s2", "trans", "norm", "norm_act"])
 def test_function_matches_plain_autograd(kind):
-    """Each Function's backward (the twins of K1 dx, K5-K9 and K2
-    norm_bwd) against autograd through the plain forward twin, on odd
-    sizes: the same gradients to f32 rounding (1e-5)."""
+    """Each Function's backward (the twins of K1 dx, K5-K9, K2 norm_bwd
+    and norm_act_bwd, and the norm's dx) against autograd through the
+    plain forward twin, on odd sizes: the same gradients to f32 rounding
+    (1e-5)."""
     rng = np.random.default_rng(7)
     dims, c = (3, 5, 6), 16
 
@@ -219,9 +242,16 @@ def test_function_matches_plain_autograd(kind):
     elif kind == "trans":
         args, mask = [r(*dims, 2 * c), r(2 * c, c, 2, 2, 2, s=0.2), r(c)], [True] * 3
         fn, plain, g = K.ConvTrans2xFn.apply, K.conv_trans2x_plain, r(6, 10, 12, c)
+    elif kind == "norm":
+        args, mask = [r(*dims, c, s=2.0) + 0.5, r(c) + 1.0, r(c)], [True] * 3
+        fn = lambda x, s, b: InstanceNormActTrain.apply(x, s, b, None)  # noqa: E731
+        plain, g = instance_norm_train_plain, r(*dims, c)
     else:
         args, mask = [r(*dims, c, s=2.0) + 0.5, r(c) + 1.0, r(c)], [True] * 3
-        fn, plain, g = InstanceNormTrain.apply, instance_norm_train_plain, r(*dims, c)
+        fn = lambda x, s, b: InstanceNormActTrain.apply(x, s, b, "leaky_relu")  # noqa: E731
+        plain = lambda x, s, b: K.activation_train(  # noqa: E731
+            instance_norm_train_plain(x, s, b), "leaky_relu")
+        g = r(*dims, c)
     _plain_vs_fn(fn, plain, args, g, mask)
 
 
@@ -232,3 +262,87 @@ def test_leaky_relu_gradient_at_zero_is_one():
     assert torch.equal(y.detach(), K.activation(x.detach(), "leaky_relu"))
     expected = torch.tensor([0.01, 1.0, 1.0], dtype=torch.bfloat16)
     assert torch.equal(x.grad, expected)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["leaky_relu", None])
+def test_norm_act_matches_composition(dtype, act):
+    """``InstanceNormActTrain`` on the CPU (its wrappers' twins) against
+    ``InstanceNormTrain`` then ``_LeakyReLU`` (or nothing): y, dx, dscale
+    and dbias bit for bit, with exact zeros in x and g and a channel whose
+    output is exactly 0; and K2 ``norm_act_bwd``'s twin bit for bit
+    ``norm_bwd``'s on the materialised leaky ReLU gradient."""
+    rng = np.random.default_rng(8)
+    dims, c = (3, 5, 7), 16
+    x = torch.from_numpy(rng.standard_normal((*dims, c)).astype(np.float32) * 2 + 0.5).to(dtype)
+    x[0] = 0
+    x[..., 3] = 0
+    scale = torch.from_numpy(rng.random(c).astype(np.float32) + 0.5)
+    bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+    bias[3] = 0
+    g = torch.from_numpy(rng.standard_normal((*dims, c)).astype(np.float32)).to(dtype)
+    g[-1] = 0
+    mine = [v.clone().requires_grad_() for v in (x, scale, bias)]
+    ref = [v.clone().requires_grad_() for v in (x, scale, bias)]
+    y = InstanceNormActTrain.apply(*mine, act)
+    yn = InstanceNormTrain.apply(*ref)
+    yr = K._LeakyReLU.apply(yn) if act else yn
+    y.backward(g)
+    yr.backward(g)
+    assert torch.equal(y, yr)
+    assert (yr[..., 3] == 0).all()
+    for a, b in zip(mine, ref):
+        assert a.grad.dtype == b.grad.dtype and torch.equal(a.grad, b.grad)
+    n = x.numel() // c
+    st = R.channel_sum_sq(x)
+    mean = st[0] / n
+    inv = torch.rsqrt((st[1] / n - mean * mean).clamp_min(0) + 1e-5)
+    gp = torch.where(K.activation(yn.detach(), "leaky_relu") >= 0, g, g * 0.01)
+    assert torch.equal(N.norm_act_bwd_sums(g, x, mean, inv, scale, bias),
+                       R.norm_bwd_sums(gp, x, mean, inv))
+
+
+# the benchmark's nnU-Net 3d_fullres network (32 to 320 channels), and a
+# network whose kernel-width norms also carry relu, elu and no activation
+NNUNET_ARCH = json.loads((Path(__file__).resolve().parent.parent / "benchmark" / "configs"
+                          / "nnunet_fullres_32_320.json").read_text())["architecture"]
+MIXED_ARCH = "\n".join([
+    "conv16,ks3,stride1+norm,relu+conv16,ks3,stride1+norm",
+    "conv32,ks3,stride2+norm,elu+conv32,ks3,stride1+norm,leaky_relu+conv_trans16,ks2,stride2",
+    "conv16,ks3,stride1+norm,leaky_relu+conv16,ks3,stride1+norm,leaky_relu+conv3,ks1,stride1",
+])
+# (fused, plain) norms of a training item: levels 0-2 of the default
+# network and 0-1 of nnU-Net's take the kernels
+NORM_COUNTS = {"default": (12, 10), "nnunet": (8, 14), "mixed": (4, 2)}
+
+
+@pytest.mark.parametrize("name", list(NORM_COUNTS))
+def test_traced_norm_counts(monkeypatch, name):
+    """A traced ``forward_train`` + backward of one item counts
+    ``norm_act.fused`` once for each norm layer ``_route`` gives the
+    kernels whose activation ``InstanceNormActTrain`` takes, and
+    ``norm_act.plain`` once for every other norm layer."""
+    arch = {"default": default_architecture(3), "nnunet": NNUNET_ARCH, "mixed": MIXED_ARCH}[name]
+    spec = parse_architecture(1, 3, arch)
+    params = {k: torch.from_numpy(v).requires_grad_() for k, v in T.init_params(spec, 0).items()}
+    grid = (16, 16, 16) if name == "mixed" else (32, 32, 32)
+    x = torch.rand((1, *grid, 1), generator=torch.Generator().manual_seed(0))
+    routes = []
+    route = T._route
+
+    def recorded(layer, c, dhw, pair=False):
+        r = route(layer, c, dhw, pair)
+        if layer.kind == "norm":
+            routes.append(r == "norm" and layer.act in NORM_ACTS)
+        return r
+
+    monkeypatch.setattr(T, "_route", recorded)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("item"):
+            outs = T.forward_train(spec, params, x, compute_dtype=torch.float32)
+            logits = [getattr(o, "planes", o) for o in outs if o is not None]
+            sum(t.sum() for t in logits).backward()
+    counts = {r.name: r.counts for r in profiling.records()}["item"]
+    expected = (sum(routes), len(routes) - sum(routes))
+    assert expected == NORM_COUNTS[name]
+    assert (counts.get("norm_act.fused", 0), counts.get("norm_act.plain", 0)) == expected

@@ -8,7 +8,11 @@
 //   no conv epilogue produced them (the decoder's dual conv), and every
 //   norm of the training forward; and "norm_bwd" (norm_bwd_sums): sum of
 //   g and of g * (x - mean) * inv in one read of g and x, the two
-//   reductions of the instance norm's backward;
+//   reductions of the instance norm's backward; and "norm_act_bwd"
+//   (norm_act_bwd_sums): the same two sums of g' = where(y >= 0, g,
+//   g * 0.01), the gradient through the leaky ReLU that follows the
+//   training norm, y recomputed from x (norm_act_y), so g' is never
+//   written;
 // - "max" (lane_max), max_kernel: the largest value of a whole volume of
 //   any size, from a zero-initialised accumulator as on the TPU, so the
 //   result is max(0, max(x)).  The augmentation's fused image + label warp
@@ -40,6 +44,21 @@
 //   the wrapper (ops/reduce.py) passes both, so launches on two streams
 //   may overlap, and launches on one stream run in order.
 // The max folds the same way with fmaxf, which is exact in any order.
+//
+// Beside K2, the training norm + leaky ReLU's two elementwise passes
+// (ops/norm.py InstanceNormActTrain; they replace no TPU kernel: the JAX
+// package leaves them to XLA, which fuses them): norm_act_kernel, the
+// forward, reads x and writes y = act(x * a + b); norm_act_dx_kernel, the
+// backward's apply, reads g and x and writes dx.  Both are bound by bytes
+// (a few operations per element): at nnU-Net's level 0, (192,224,192,32)
+// bf16, 528 MB a volume, the forward moves 1.06 GB (0.32 ms), norm_act_bwd
+// as much, and the apply 1.59 GB (0.47 ms).  They walk the volume as K2
+// does (one wave, the grid stride a multiple of C, so a thread's channels
+// and their (C,) constants stay in registers), and they round as the
+// PyTorch composition they replace does: each bf16 op computed in f32 and
+// rounded to T, __fmul_rn / __fadd_rn / __fsub_rn so that nvcc contracts
+// nothing across a rounding.  Their results, and norm_act_bwd's sums, are
+// bitwise those of the composition.
 
 #include "common.cuh"
 
@@ -52,6 +71,7 @@
 #define RED_SUM_SQ 1    // out[0] = sum x, out[1] = sum x^2
 #define RED_SQDIFF 2    // out[0] = sum (x - mean)^2
 #define RED_NORM_BWD 3  // out[0] = sum g, out[1] = sum g * (x - mean) * inv
+#define RED_NORM_ACT_BWD 4  // RED_NORM_BWD of g' = leaky_grad(g, norm_act_y(x))
 
 // 16 bytes of T: loaded raw, converted to f32 where they are used
 template <typename T>
@@ -66,6 +86,9 @@ struct Vec<float> {
     out[1] = v.y;
     out[2] = v.z;
     out[3] = v.w;
+  }
+  __device__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
 };
 template <>
@@ -84,7 +107,48 @@ struct Vec<__nv_bfloat16> {
       out[2 * k + 1] = f.y;
     }
   }
+  __device__ static void store(__nv_bfloat16* p, const float* v) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
 };
+
+// The training norm + activation as ops/norm.py computes it, one rounding
+// per PyTorch op.  round_to<T>: a value rounded to T (nearest even), back
+// in f32.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// The affine of channel ch (_apply): a = T(inv * scale) (also the
+// backward's coef), b = T(bias - mean * inv * scale), in f32.
+template <typename T>
+__device__ __forceinline__ void norm_affine(const float* mean, const float* inv,
+                                            const float* scale, const float* bias, int ch,
+                                            float& a, float& b) {
+  const float s = scale[ch], iv = inv[ch];
+  a = round_to<T>(__fmul_rn(iv, s));
+  b = round_to<T>(__fsub_rn(bias[ch], __fmul_rn(__fmul_rn(mean[ch], iv), s)));
+}
+
+// y = x * a + b (two ops of T), then F.leaky_relu's y > 0 ? y : y * 0.01
+template <typename T, bool LEAKY>
+__device__ __forceinline__ float norm_act_y(float x, float a, float b) {
+  const float z = round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(x, a)), b));
+  if (!LEAKY) return z;
+  return z > 0.0f ? z : round_to<T>(__fmul_rn(z, 0.01f));
+}
+
+// the leaky ReLU's input gradient (ops/conv.py _LeakyReLU.backward):
+// where(y >= 0, g, g * 0.01)
+template <typename T>
+__device__ __forceinline__ float leaky_grad(float g, float y) {
+  return y >= 0.0f ? g : round_to<T>(__fmul_rn(g, 0.01f));
+}
 
 // Every thread: after its partial stores, is this block the launch's last?
 // ticket: blocks done in the running launch on this stream (0 between
@@ -135,31 +199,34 @@ static int reduce_smem_floats(int rows, int c, int n) {
 
 // Needs C a power of two with Vec<T>::N <= C <= 1024, so that the grid
 // stride (RED_THREADS * N elements times gridDim.x) is a multiple of C.
-// a: the volume (g for RED_NORM_BWD); b: x for RED_NORM_BWD, else unused;
-// mean: (C,) f32 for RED_SQDIFF and RED_NORM_BWD; inv: (C,) for
-// RED_NORM_BWD; part: (gridDim.x, rows, C) scratch; ticket: the stream's
-// ticket; out: (rows, C).
+// a: the volume (g for RED_NORM_BWD and RED_NORM_ACT_BWD); b: x for
+// those two, else unused; mean: (C,) f32 for RED_SQDIFF and the two; inv,
+// and for RED_NORM_ACT_BWD scale and bias: (C,) f32; part: (gridDim.x,
+// rows, C) scratch; ticket: the stream's ticket; out: (rows, C).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(RED_THREADS)
 channel_reduce_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                      const float* __restrict__ mean, const float* __restrict__ inv, long n_vec,
+                      const float* __restrict__ mean, const float* __restrict__ inv,
+                      const float* __restrict__ scale, const float* __restrict__ bias, long n_vec,
                       int c, float* __restrict__ part, unsigned int* ticket,
                       float* __restrict__ out) {
   using V = Vec<T>;
   constexpr int N = V::N;
-  constexpr int ROWS = (MODE == RED_SUM_SQ || MODE == RED_NORM_BWD) ? 2 : 1;
-  constexpr bool TWO = MODE == RED_NORM_BWD;
+  constexpr bool ACT = MODE == RED_NORM_ACT_BWD;
+  constexpr bool TWO = MODE == RED_NORM_BWD || ACT;
+  constexpr int ROWS = (MODE == RED_SUM_SQ || TWO) ? 2 : 1;
   extern __shared__ float sh[];
 
   const int tid = threadIdx.x;
   const int cbase = (tid * N) % c;  // the block's stride is a multiple of C
-  float v[ROWS][N], m[N], iv[N];
+  float v[ROWS][N], m[N], iv[N], na[N], nb[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) v[r][k] = 0.0f;
     m[k] = (MODE == RED_SQDIFF || TWO) ? mean[cbase + k] : 0.0f;
     iv[k] = TWO ? inv[cbase + k] : 0.0f;
+    if (ACT) norm_affine<T>(mean, inv, scale, bias, cbase + k, na[k], nb[k]);
   }
   const long stride = (long)gridDim.x * RED_THREADS;
   for (long i0 = (long)blockIdx.x * RED_THREADS + tid; i0 < n_vec; i0 += RED_UNROLL * stride) {
@@ -180,6 +247,7 @@ channel_reduce_kernel(const T* __restrict__ a, const T* __restrict__ b,
       if (TWO) V::to_f32(rb[u], fb);
 #pragma unroll
       for (int k = 0; k < N; ++k) {
+        if (ACT) fa[k] = leaky_grad<T>(fa[k], norm_act_y<T, true>(fb[k], na[k], nb[k]));
         if (MODE == RED_SQDIFF) {
           const float d = fa[k] - m[k];
           v[0][k] = fmaf(d, d, v[0][k]);
@@ -268,6 +336,95 @@ max_kernel(const T* __restrict__ x, long n_vec, long n, float* __restrict__ part
   }
 }
 
+// y = norm_act_y(x) for a channels-last (n_vec * N / C, C) volume (the
+// training norm's forward after K2's statistics).  mean, inv, scale, bias:
+// (C,) f32.  C as channel_reduce_kernel needs it.
+template <typename T, bool LEAKY>
+__global__ void __launch_bounds__(RED_THREADS)
+norm_act_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                const float* __restrict__ inv, const float* __restrict__ scale,
+                const float* __restrict__ bias, long n_vec, int c, T* __restrict__ y) {
+  using V = Vec<T>;
+  constexpr int N = V::N;
+  const int cbase = (threadIdx.x * N) % c;
+  float na[N], nb[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) norm_affine<T>(mean, inv, scale, bias, cbase + k, na[k], nb[k]);
+  const long stride = (long)gridDim.x * RED_THREADS;
+  for (long i0 = (long)blockIdx.x * RED_THREADS + threadIdx.x; i0 < n_vec;
+       i0 += RED_UNROLL * stride) {
+    typename V::Raw raw[RED_UNROLL];
+#pragma unroll
+    for (int u = 0; u < RED_UNROLL; ++u)
+      if (i0 + u * stride < n_vec) raw[u] = V::load(x + (i0 + u * stride) * N);
+#pragma unroll
+    for (int u = 0; u < RED_UNROLL; ++u) {
+      if (i0 + u * stride >= n_vec) break;
+      float f[N];
+      V::to_f32(raw[u], f);
+#pragma unroll
+      for (int k = 0; k < N; ++k) f[k] = norm_act_y<T, LEAKY>(f[k], na[k], nb[k]);
+      V::store(y + (i0 + u * stride) * N, f);
+    }
+  }
+}
+
+// The norm's input gradient (ops/norm.py norm_act_dx_plain) from g, the
+// gradient of y = norm_act_y(x): g' = leaky_grad(g, y) when LEAKY, else g;
+// xhat = T(T(x - T(mean)) * T(inv)); dx = T(a * T(T(g' - T(g_mean)) -
+// T(xhat * T(gx_mean)))), a = T(inv * scale).  means: (2, C) f32, the
+// rows g_mean and gx_mean.
+template <typename T, bool LEAKY>
+__global__ void __launch_bounds__(RED_THREADS)
+norm_act_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                   const float* __restrict__ mean, const float* __restrict__ inv,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   const float* __restrict__ means, long n_vec, int c, T* __restrict__ dx) {
+  using V = Vec<T>;
+  constexpr int N = V::N;
+  const int cbase = (threadIdx.x * N) % c;
+  float na[N], nb[N], m[N], iv[N], gm[N], gxm[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int ch = cbase + k;
+    norm_affine<T>(mean, inv, scale, bias, ch, na[k], nb[k]);
+    m[k] = round_to<T>(mean[ch]);
+    iv[k] = round_to<T>(inv[ch]);
+    gm[k] = round_to<T>(means[ch]);
+    gxm[k] = round_to<T>(means[c + ch]);
+  }
+  const long stride = (long)gridDim.x * RED_THREADS;
+  for (long i0 = (long)blockIdx.x * RED_THREADS + threadIdx.x; i0 < n_vec;
+       i0 += RED_UNROLL * stride) {
+    typename V::Raw rg[RED_UNROLL], rx[RED_UNROLL];
+#pragma unroll
+    for (int u = 0; u < RED_UNROLL; ++u) {
+      const long i = i0 + u * stride;
+      if (i < n_vec) {
+        rg[u] = V::load(g + i * N);
+        rx[u] = V::load(x + i * N);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RED_UNROLL; ++u) {
+      if (i0 + u * stride >= n_vec) break;
+      float fg[N], fx[N];
+      V::to_f32(rg[u], fg);
+      V::to_f32(rx[u], fx);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float gp =
+            LEAKY ? leaky_grad<T>(fg[k], norm_act_y<T, true>(fx[k], na[k], nb[k])) : fg[k];
+        const float xhat = round_to<T>(__fmul_rn(round_to<T>(__fsub_rn(fx[k], m[k])), iv[k]));
+        const float t = round_to<T>(__fsub_rn(round_to<T>(__fsub_rn(gp, gm[k])),
+                                              round_to<T>(__fmul_rn(xhat, gxm[k]))));
+        fg[k] = round_to<T>(__fmul_rn(na[k], t));
+      }
+      V::store(dx + (i0 + u * stride) * N, fg);
+    }
+  }
+}
+
 static int red_sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -307,37 +464,60 @@ static unsigned reduce_grid(const void* kernel, int smem, long n_vec) {
   return (unsigned)(blocks < 1 ? 1 : blocks);
 }
 
+// The (C,) f32 vectors of the norm's channels, as the kernels take them.
+struct NormVecs {
+  const float *mean, *inv, *scale, *bias;
+};
+
 template <typename T, int MODE>
-static void launch_channels(const void* a, const void* b, const void* mean, const void* inv,
-                            long n_vox, int c, void* part, void* ticket, void* out,
-                            cudaStream_t s) {
+static void launch_channels(const void* a, const void* b, NormVecs nv, long n_vox, int c,
+                            void* part, void* ticket, void* out, cudaStream_t s) {
   constexpr int N = Vec<T>::N;
-  constexpr int ROWS = (MODE == RED_SUM_SQ || MODE == RED_NORM_BWD) ? 2 : 1;
+  constexpr int ROWS = (MODE == RED_SUM_SQ || MODE >= RED_NORM_BWD) ? 2 : 1;
   const long n_vec = n_vox * c / N;
   const int smem = reduce_smem_floats(ROWS, c, N) * (int)sizeof(float);
   auto kernel = channel_reduce_kernel<T, MODE>;
   const unsigned grid = reduce_grid((const void*)kernel, smem, n_vec);
-  kernel<<<grid, RED_THREADS, smem, s>>>((const T*)a, (const T*)b, (const float*)mean,
-                                         (const float*)inv, n_vec, c, (float*)part,
+  kernel<<<grid, RED_THREADS, smem, s>>>((const T*)a, (const T*)b, nv.mean, nv.inv, nv.scale,
+                                         nv.bias, n_vec, c, (float*)part,
                                          (unsigned int*)ticket, (float*)out);
 }
 
 template <int MODE>
-static void launch_mode(const void* a, const void* b, const void* mean, const void* inv,
-                        long n_vox, int c, void* part, void* ticket, void* out, int dtype,
-                        cudaStream_t s) {
+static void launch_mode(const void* a, const void* b, NormVecs nv, long n_vox, int c,
+                        void* part, void* ticket, void* out, int dtype, cudaStream_t s) {
   if (dtype == DT_F32)
-    launch_channels<float, MODE>(a, b, mean, inv, n_vox, c, part, ticket, out, s);
+    launch_channels<float, MODE>(a, b, nv, n_vox, c, part, ticket, out, s);
   else
-    launch_channels<__nv_bfloat16, MODE>(a, b, mean, inv, n_vox, c, part, ticket, out, s);
+    launch_channels<__nv_bfloat16, MODE>(a, b, nv, n_vox, c, part, ticket, out, s);
+}
+
+template <typename T, bool LEAKY>
+static void launch_norm_act(const void* x, NormVecs nv, long n_vox, int c, void* y,
+                            cudaStream_t s) {
+  const long n_vec = n_vox * c / Vec<T>::N;
+  auto kernel = norm_act_kernel<T, LEAKY>;
+  kernel<<<reduce_grid((const void*)kernel, 0, n_vec), RED_THREADS, 0, s>>>(
+      (const T*)x, nv.mean, nv.inv, nv.scale, nv.bias, n_vec, c, (T*)y);
+}
+
+template <typename T, bool LEAKY>
+static void launch_norm_act_dx(const void* g, const void* x, NormVecs nv, const void* means,
+                               long n_vox, int c, void* dx, cudaStream_t s) {
+  const long n_vec = n_vox * c / Vec<T>::N;
+  auto kernel = norm_act_dx_kernel<T, LEAKY>;
+  kernel<<<reduce_grid((const void*)kernel, 0, n_vec), RED_THREADS, 0, s>>>(
+      (const T*)g, (const T*)x, nv.mean, nv.inv, nv.scale, nv.bias, (const float*)means, n_vec,
+      c, (T*)dx);
 }
 
 extern "C" {
 
 // Each entry returns cudaGetLastError() after its launch (0 on success).
-// The wrappers (ops/reduce.py) have checked dtype, contiguity, 16-byte
-// alignment and C.  part: RED_MAX_BLOCKS * rows * C f32 scratch (rows: 2
-// for RED_SUM_SQ and RED_NORM_BWD, else 1), its contents unused; ticket:
+// The wrappers (ops/reduce.py, ops/norm.py) have checked dtype,
+// contiguity, 16-byte alignment and C.  part: RED_MAX_BLOCKS * rows * C f32
+// scratch (rows: 1 for RED_SUM and RED_SQDIFF, else 2), its contents
+// unused; ticket:
 // one unsigned int, 0 at allocation, never touched between launches; both
 // belong to the launch's stream.  out: (rows, C) f32, uninitialised.
 
@@ -346,12 +526,13 @@ extern "C" {
 int unet_channel_moments(const void* x, const void* mean, long n_vox, int c, int mode,
                          void* part, void* ticket, void* out, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const NormVecs nv = {(const float*)mean, nullptr, nullptr, nullptr};
   if (mode == RED_SUM)
-    launch_mode<RED_SUM>(x, nullptr, mean, nullptr, n_vox, c, part, ticket, out, dtype, s);
+    launch_mode<RED_SUM>(x, nullptr, nv, n_vox, c, part, ticket, out, dtype, s);
   else if (mode == RED_SUM_SQ)
-    launch_mode<RED_SUM_SQ>(x, nullptr, mean, nullptr, n_vox, c, part, ticket, out, dtype, s);
+    launch_mode<RED_SUM_SQ>(x, nullptr, nv, n_vox, c, part, ticket, out, dtype, s);
   else if (mode == RED_SQDIFF)
-    launch_mode<RED_SQDIFF>(x, nullptr, mean, nullptr, n_vox, c, part, ticket, out, dtype, s);
+    launch_mode<RED_SQDIFF>(x, nullptr, nv, n_vox, c, part, ticket, out, dtype, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -361,8 +542,55 @@ int unet_channel_moments(const void* x, const void* mean, long n_vox, int c, int
 int unet_channel_norm_bwd(const void* g, const void* x, const void* mean, const void* inv,
                           long n_vox, int c, void* part, void* ticket, void* out, int dtype,
                           void* stream) {
-  launch_mode<RED_NORM_BWD>(g, x, mean, inv, n_vox, c, part, ticket, out, dtype,
-                            (cudaStream_t)stream);
+  const NormVecs nv = {(const float*)mean, (const float*)inv, nullptr, nullptr};
+  launch_mode<RED_NORM_BWD>(g, x, nv, n_vox, c, part, ticket, out, dtype, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// RED_NORM_ACT_BWD: as unet_channel_norm_bwd, with scale, bias: (C,) f32.
+int unet_channel_norm_act_bwd(const void* g, const void* x, const void* mean, const void* inv,
+                              const void* scale, const void* bias, long n_vox, int c, void* part,
+                              void* ticket, void* out, int dtype, void* stream) {
+  const NormVecs nv = {(const float*)mean, (const float*)inv, (const float*)scale,
+                       (const float*)bias};
+  launch_mode<RED_NORM_ACT_BWD>(g, x, nv, n_vox, c, part, ticket, out, dtype,
+                                (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// The norm's elementwise passes.  x, y, g, dx: (n_vox, C) of one dtype;
+// mean, inv, scale, bias: (C,) f32; means: (2, C) f32; act: ACT_NONE or
+// ACT_LEAKY.
+int unet_norm_act(const void* x, const void* mean, const void* inv, const void* scale,
+                  const void* bias, long n_vox, int c, int act, void* y, int dtype,
+                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const NormVecs nv = {(const float*)mean, (const float*)inv, (const float*)scale,
+                       (const float*)bias};
+  if (act != ACT_NONE && act != ACT_LEAKY) return (int)cudaErrorInvalidValue;
+  const bool leaky = act == ACT_LEAKY;
+  if (dtype == DT_F32)
+    (leaky ? launch_norm_act<float, true> : launch_norm_act<float, false>)(x, nv, n_vox, c, y, s);
+  else
+    (leaky ? launch_norm_act<__nv_bfloat16, true>
+           : launch_norm_act<__nv_bfloat16, false>)(x, nv, n_vox, c, y, s);
+  return (int)cudaGetLastError();
+}
+
+int unet_norm_act_dx(const void* g, const void* x, const void* mean, const void* inv,
+                     const void* scale, const void* bias, const void* means, long n_vox, int c,
+                     int act, void* dx, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const NormVecs nv = {(const float*)mean, (const float*)inv, (const float*)scale,
+                       (const float*)bias};
+  if (act != ACT_NONE && act != ACT_LEAKY) return (int)cudaErrorInvalidValue;
+  const bool leaky = act == ACT_LEAKY;
+  if (dtype == DT_F32)
+    (leaky ? launch_norm_act_dx<float, true>
+           : launch_norm_act_dx<float, false>)(g, x, nv, means, n_vox, c, dx, s);
+  else
+    (leaky ? launch_norm_act_dx<__nv_bfloat16, true>
+           : launch_norm_act_dx<__nv_bfloat16, false>)(g, x, nv, means, n_vox, c, dx, s);
   return (int)cudaGetLastError();
 }
 

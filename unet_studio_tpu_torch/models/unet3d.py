@@ -30,9 +30,10 @@ import torch.utils.checkpoint
 from ..ops import conv as K
 from ..ops.conv import activation, activation_train, dhwc, ncdhw
 from ..ops.losses import ChannelLeading
-from ..ops.norm import InstanceNormTrain, instance_norm_train_plain
+from ..ops.norm import NORM_ACTS, instance_norm_act_train, instance_norm_train_plain
 from ..ops.reduce import channel_sum_sq, channel_sum_sq_plain
 from ..utils.device import resolve_device
+from ..utils.profiling import count
 from .dsl import LayerSpec, UNetSpec, parse_architecture
 
 # ---------------------------------------------------------------------------
@@ -477,15 +478,20 @@ def forward_fused(spec: UNetSpec, params: dict, x: torch.Tensor, *,
 # The counterpart of the JAX package's packed forward in training
 # (forward_packed(train=True), that is _run_level_packed(fuse=False)): no
 # deferred norm and no prologue.  The layers ``_route`` gives a kernel go
-# through the custom-VJP Functions (forward and backward kernels); the
-# C >= 128 levels, the ks1 heads and the other layers run plain PyTorch
-# under autograd, as the JAX package leaves them to XLA (_conv_cv).
+# through the custom-VJP Functions (forward and backward kernels), a norm
+# with its activation (``instance_norm_act_train``); the C >= 128 levels,
+# the ks1 heads and the other layers run plain PyTorch under autograd, as
+# the JAX package leaves them to XLA (_conv_cv).  The program's tracer
+# counts each training norm: ``norm_act.fused`` where the norm's Function
+# takes its activation (a leaky ReLU or none), ``norm_act.plain`` where it
+# does not.
 
 
 class _TrainOps:
-    """The layers a training forward calls, one per ``_route`` name: the
-    kernels' autograd Functions, or, for ``plain=True``, their twins under
-    plain autograd (the reference a card run is held to)."""
+    """The layers a training forward calls, one per ``_route`` name (a
+    norm with its activation): the kernels' autograd Functions, or, for
+    ``plain=True``, their twins under plain autograd (the reference a card
+    run is held to)."""
 
     def __init__(self, plain: bool):
         if plain:
@@ -494,11 +500,12 @@ class _TrainOps:
             self.dual = lambda xa, xb, w, b: K.conv3_plain([xa, xb], [None, None], w, b, 1)
             self.s2 = lambda x, w, b: K.conv3_plain([x], [None], w, b, 2)
             self.trans = K.conv_trans2x_plain
-            self.norm = instance_norm_train_plain
+            self.norm = lambda x, w, b, act: activation_train(instance_norm_train_plain(x, w, b),
+                                                              act)
         else:
             self.s1, self.entry = K.ConvS1Fn.apply, K.ConvEntryFn.apply
             self.dual, self.s2 = K.ConvDualFn.apply, K.ConvS2Fn.apply
-            self.trans, self.norm = K.ConvTrans2xFn.apply, InstanceNormTrain.apply
+            self.trans, self.norm = K.ConvTrans2xFn.apply, instance_norm_act_train
 
 
 def _ks1_conv(x, w, b):
@@ -520,6 +527,12 @@ def _run_level_train(ops: _TrainOps, params, mod_name, layers, x):
                 continue
             x = torch.cat([a, up], dim=-1)
         route = _route(layer, x.shape[-1], x.shape[:3])
+        if layer.kind == "norm":
+            count("norm_act.fused" if route == "norm" and layer.act in NORM_ACTS
+                  else "norm_act.plain")
+        if route == "norm":
+            x = ops.norm(x, w, b, layer.act)
+            continue
         if route:
             x = getattr(ops, route)(x, w, b)
         elif layer.kind == "conv" and layer.ks == 1:

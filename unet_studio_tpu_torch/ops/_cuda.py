@@ -58,6 +58,12 @@ _SIGNATURES = {
     "unet_volume_max": [_P, _L, _P, _P, _P, _I, _P],
     # g, x, mean, inv, n_vox, c, part, ticket, out, dtype, stream
     "unet_channel_norm_bwd": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
+    # g, x, mean, inv, scale, bias, n_vox, c, part, ticket, out, dtype, stream
+    "unet_channel_norm_act_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
+    # x, mean, inv, scale, bias, n_vox, c, act, y, dtype, stream
+    "unet_norm_act": [_P, _P, _P, _P, _P, _L, _I, _I, _P, _I, _P],
+    # g, x, mean, inv, scale, bias, means, n_vox, c, act, dx, dtype, stream
+    "unet_norm_act_dx": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _I, _P],
     # a, AD, AH, AW, ca, b, BD, BH, BW, cb, ks, stride, pad, part, nblk, out,
     # stream (f32)
     "unet_conv_dw": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],

@@ -113,7 +113,13 @@ class _LeakyReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
-        return torch.where(y >= 0, g, g * 0.01)
+        return leaky_grad(g, y)
+
+
+def leaky_grad(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The training leaky ReLU's input gradient from ``g``, the gradient
+    of its output ``y``."""
+    return torch.where(y >= 0, g, g * 0.01)
 
 
 def activation_train(x: torch.Tensor, act: str | None) -> torch.Tensor:

@@ -6,7 +6,10 @@ modes, with their plain PyTorch twins:
   the instance norm's statistics, and the two modes the JAX package
   defines but never calls, ``sum`` (``lane_sum``) and ``sqdiff``
   (``lane_sqdiff``);
-- ``norm_bwd`` (``norm_bwd_sums``), the two sums of the norm's backward;
+- ``norm_bwd`` (``norm_bwd_sums``), the two sums of the norm's backward
+  (ops/norm.py launches its ``norm_act_bwd`` form, the same sums of the
+  gradient through the training norm's leaky ReLU, through
+  ``channel_sums2``);
 - ``max`` (``lane_max``) over a whole volume of any shape: the peak that
   scales the augmentation's packed image + label warp.
 
@@ -71,7 +74,9 @@ def _check_dense(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: input must be contiguous and 16-byte aligned")
 
 
-def _check_volume(x: torch.Tensor, name: str) -> int:
+def check_volume(x: torch.Tensor, name: str) -> int:
+    """C of a channels-last volume that K2's per-channel modes and the
+    norm's elementwise kernels (ops/norm.py) take; raises otherwise."""
     _check_dense(x, name)
     c = x.shape[-1]
     if c & (c - 1) or not 8 <= c <= 1024:
@@ -106,7 +111,7 @@ def _partials(x: torch.Tensor, rows: int, c: int) -> tuple[int, int]:
 
 def _moments(x: torch.Tensor, mode: int, mean: torch.Tensor | None, name: str) -> torch.Tensor:
     """(2, C) for ``_SUM_SQ``, else (C,)."""
-    c = _check_volume(x, name)
+    c = check_volume(x, name)
     rows = 2 if mode == _SUM_SQ else 1
     out = torch.empty((2, c) if rows == 2 else (c,), dtype=torch.float32, device=x.device)
     with _cuda.on_device(x):
@@ -171,6 +176,35 @@ def volume_max(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def launch_channels(entry: str, name: str, vols, vecs, args, out: torch.Tensor) -> torch.Tensor:
+    """One launch of a per-channel entry of csrc/reduce.cu into ``out``.
+    The entry takes: the pointers of ``vols``, channels-last volumes of
+    one shape and dtype, and of ``vecs``, f32 (C,) or (2, C) each; the
+    voxel count and C; ``args(c)``, the entry's own arguments; out's
+    pointer, the dtype code of ``vols`` and the stream."""
+    c = check_volume(vols[0], name)
+    for v in vols[1:]:
+        check_volume(v, name)
+        if v.shape != vols[0].shape or v.dtype != vols[0].dtype:
+            raise ValueError(f"{name}: the volumes differ in shape or dtype")
+    vecs = [v.detach().to(device=out.device, dtype=torch.float32).contiguous() for v in vecs]
+    if any(v.shape not in ((c,), (2, c)) for v in vecs):
+        raise ValueError(f"{name}: the per-channel vectors must be ({c},) or (2, {c})")
+    with _cuda.on_device(out):
+        rc = getattr(_cuda.lib(), entry)(
+            *(v.data_ptr() for v in (*vols, *vecs)), vols[0].numel() // c, c, *args(c),
+            out.data_ptr(), _cuda.DTYPE_CODES[vols[0].dtype], _cuda.stream_ptr(out))
+    _cuda.check(rc, name)
+    return out
+
+
+def channel_sums2(entry: str, name: str, g: torch.Tensor, x: torch.Tensor, vecs) -> torch.Tensor:
+    """(2, C) f32 from one launch of a two-volume mode of K2 (``norm_bwd``
+    or ``norm_act_bwd``) on ``g`` and ``x`` and the f32 (C,) ``vecs``."""
+    out = torch.empty((2, g.shape[-1]), dtype=torch.float32, device=g.device)
+    return launch_channels(entry, name, (g, x), vecs, lambda c: _partials(g, 2, c), out)
+
+
 def norm_bwd_sums(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                   inv: torch.Tensor) -> torch.Tensor:
     """K2 ``norm_bwd``: (2, C) f32 per-channel sum of ``g`` and of
@@ -179,22 +213,7 @@ def norm_bwd_sums(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     the two volumes (the instance norm's backward)."""
     if g.device.type == "cpu":
         return norm_bwd_sums_plain(g, x, mean, inv)
-    c = _check_volume(g, "norm_bwd_sums")
-    _check_volume(x, "norm_bwd_sums")
-    if x.shape != g.shape or x.dtype != g.dtype:
-        raise ValueError("norm_bwd_sums: g and x differ in shape or dtype")
-    mean = mean.to(device=g.device, dtype=torch.float32).contiguous()
-    inv = inv.to(device=g.device, dtype=torch.float32).contiguous()
-    if mean.shape != (c,) or inv.shape != (c,):
-        raise ValueError(f"norm_bwd_sums: mean and inv must be ({c},)")
-    out = torch.empty((2, c), dtype=torch.float32, device=g.device)
-    with _cuda.on_device(g):
-        rc = _cuda.lib().unet_channel_norm_bwd(
-            g.data_ptr(), x.data_ptr(), mean.data_ptr(), inv.data_ptr(), g.numel() // c, c,
-            *_partials(g, 2, c), out.data_ptr(), _cuda.DTYPE_CODES[g.dtype],
-            _cuda.stream_ptr(g),
-        )
-    _cuda.check(rc, "norm_bwd_sums")
+    out = channel_sums2("unet_channel_norm_bwd", "norm_bwd_sums", g, x, (mean, inv))
     norm_bwd_sums.launches += 1
     return out
 
